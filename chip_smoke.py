@@ -8,17 +8,25 @@ non-zero with the phase's name:
 
 1. device   refuses to run without CUDA; prints the card's name and power
             limit as nvidia-smi gives them.
-2. build    builds every kernel from mjrl_tpu_torch/csrc with nvcc; prints
-            seconds, registers and spills.
+2. build    builds every kernel from mjrl_tpu_torch/csrc with nvcc, one
+            process per model, all started together: the smooth kernel for
+            the swimmer, the contact / RK4 kernel for Hopper, Walker2d and
+            HalfCheetah; prints seconds, registers, stack frame and spills.
 3. kernels  each kernel against its plain PyTorch version ON THE CARD, same
             numpy-seeded inputs, at the shapes the main path gives it, with
             its time, the plain version's time and its roofline bound.
 4. rollout  SwimmerEnv, 4096 environments x 500 steps, 64-64 policy,
             stochastic: every leaf finite, one kernel launch per step.
-5. train    the main path through the entry points a user calls: GymEnv ->
-            MLP -> LinearBaseline -> NPG -> train_agent, 3 iterations of
-            4096 trajectories; finite statistics, KL within the guard, one
-            launch per control step of every rollout.
+5. train    the Swimmer main path through the entry points a user calls:
+            GymEnv -> MLP -> LinearBaseline -> NPG -> train_agent, 3
+            iterations of 4096 trajectories; finite statistics, KL within
+            the guard, one launch per control step of every rollout.
+6. rollout_hopper  HopperEnv, 4096 x 1000, stochastic: finite leaves, one
+            contact-kernel launch per step, episodes that end early behind a
+            non-increasing mask.
+7. train_hopper    the Hopper-v3 main path, same entry points, 3 iterations
+            of 4096 trajectories x 1000 steps; 3000 launches of the contact
+            kernel and none of the smooth one.
 
 The last line is {"ok": true, "device": {...}}.
 """
@@ -39,9 +47,12 @@ from mjrl_tpu_torch.algos import NPG
 from mjrl_tpu_torch.baselines import LinearBaseline
 from mjrl_tpu_torch.device import make_generator
 from mjrl_tpu_torch.envs import GymEnv
+from mjrl_tpu_torch.envs.gym_suite import (HalfCheetahEnv, HopperEnv,
+                                           Walker2dEnv)
 from mjrl_tpu_torch.envs.swimmer import SwimmerEnv
 from mjrl_tpu_torch.models.policies import MLP
 from mjrl_tpu_torch.ops import cuda_planar
+from mjrl_tpu_torch.physics import planar
 from mjrl_tpu_torch.physics.planar import step_n_arrays
 from mjrl_tpu_torch.samplers.rollout import rollout_batch
 from mjrl_tpu_torch.utils.train_agent import train_agent
@@ -55,6 +66,14 @@ NUM_ENVS = 4096
 HORIZON = 500
 FRAME_SKIP = 5
 NITER = 3
+HOPPER_HORIZON = 1000
+SMOOTH, CONTACT = "planar_step_smooth", "planar_step_contact"
+# contact kernel vs plain version, float32: the bounds of the JAX package's
+# own float32 check of this branch (positions 3e-4; velocities 3e-3, here
+# relative to the state set's largest velocity).  Up to 20 chained dual
+# solves amplify rounding, and a flipped restart test of the accelerated
+# descent is a legitimate difference in float32.  float64: 1e-9.
+CONTACT_TOL = {torch.float64: (1e-9, 1e-9), torch.float32: (3e-4, 3e-3)}
 
 
 def emit(obj):
@@ -104,6 +123,113 @@ def count_plain_ops(p, n):
     return sum(c.counts.values()), c.counts
 
 
+def count_component_ops(fn):
+    """Scalar operations of ``fn`` run in component form on one
+    environment."""
+    with _OpCounter() as c:
+        fn()
+    return sum(c.counts.values())
+
+
+def count_contact_ops(p, n):
+    """Scalar operations per environment of one control step of the contact
+    kernel.  Smooth dynamics and row assembly are counted from the component
+    form on one environment; the rest is fixed work, from the formula
+    (C rows, nv dofs, s sweeps, P power iterations, per acceleration
+    evaluation):
+
+      Cholesky nv^3/3 + nv^2, a0 and M^-1 J^T: (C + 1) (2 nv^2 + 2 nv),
+      scales, right-hand sides, impulses: C (8 nv + 7),
+      dual operator (P + s) times: 4 C nv + 3 C each,
+      power normalisation 3 C P, sweep bookkeeping 12 C s
+      (gradient step 3, projection 2, restart test 4, momentum 3);
+
+    evaluations: 4 n for RK4 (1 cold of 50 sweeps, the rest warm of 15), n
+    for Euler, which adds a second Cholesky, a solve and M (qacc - a0)."""
+    nv, nu, C = p.nv, len(p.actuators), planar.n_planar_rows(p)
+    q = [torch.full((1,), 0.1, dtype=torch.float64) for _ in range(nv)]
+    u = [torch.full((1,), 0.1, dtype=torch.float64) for _ in range(nu)]
+    ctx = planar._planar_ctx(p, q)
+    smooth = count_component_ops(lambda: planar._planar_smooth(p, q, q, u))
+    rows = count_component_ops(
+        lambda: planar._constraint_rows_comp(p, ctx, q, q))
+    chol = nv ** 3 // 3 + nv ** 2
+    solve = 2 * nv ** 2 + 2 * nv
+
+    def evaluation(sweeps):
+        return (smooth + rows + chol + (C + 1) * solve + C * (8 * nv + 7)
+                + (planar.POWER_ITERS + sweeps) * (4 * C * nv + 3 * C)
+                + 3 * C * planar.POWER_ITERS + 12 * C * sweeps)
+    evals = n if p.integrator == 0 else 4 * n
+    total = evaluation(planar.SWEEPS) + (evals - 1) * evaluation(
+        planar.SWEEPS_WARM)
+    if p.integrator == 0:
+        total += n * (chol + solve + 2 * nv * nv + 6 * nv)
+    else:
+        total += evals * 6 * nv
+    return total, {"rows": C, "smooth": smooth, "row_assembly": rows,
+                   "evaluations": evals}
+
+
+def contact_test_states(p, qpos0, B, seed):
+    """Half near-rest standing states; the others dropped up to 0.4 into the floor with the joints scattered, a
+    third of the limited joints pushed 0.05 to 0.3 rad past a stop and moving
+    into it, velocities up to 5.  All lie off the contact and limit
+    boundaries, where kernel and plain version could legitimately take
+    different branches; poses in which two capsule axes come within 1 cm of
+    crossing are left out, because there the contact normal is 0 / 0 and
+    rounding alone turns it."""
+    rng = np.random.RandomState(seed)
+    n, nv, nu = 2 * B, p.nv, len(p.actuators)
+    drop = np.arange(n) % 2 == 1
+    col = drop[:, None]
+    q = np.tile(np.asarray(qpos0, np.float64), (n, 1)) + np.where(
+        col, rng.uniform(-0.15, 0.15, (n, nv)),
+        rng.uniform(-0.02, 0.02, (n, nv)))
+    q[:, 1] -= np.where(drop, rng.uniform(0.05, 0.4, n), 0.0)
+    v = np.where(col, rng.uniform(-5.0, 5.0, (n, nv)),
+                 rng.uniform(-0.1, 0.1, (n, nv)))
+    u = rng.uniform(-1.0, 1.0, (n, nu))
+    for d in range(nv):
+        if p.limited[d]:
+            hit = drop & (rng.uniform(size=n) < 1.0 / 3.0)
+            side = rng.choice([-1.0, 1.0], n)
+            over = rng.uniform(0.05, 0.3, n)
+            q[:, d] = np.where(hit, np.where(side > 0, p.hi[d] + over,
+                                             p.lo[d] - over), q[:, d])
+            v[:, d] = np.where(hit, side * np.abs(v[:, d]), v[:, d])
+    keep = np.flatnonzero(planar.capsule_axis_distance(
+        p, torch.tensor(q)).numpy() > 0.01)[:B]
+    if len(keep) != B:
+        raise AssertionError("too few well-conditioned test states")
+    return q[keep], v[keep], u[keep]
+
+
+def dropped_states(p, qpos0, B, seed):
+    """Every environment 0.4 into the floor, joints scattered by 0.15,
+    velocities up to 1: the states of the JAX package's own float32 check of
+    the contact branch (tests/test_pallas_planar.py)."""
+    rng = np.random.RandomState(seed)
+    q = np.tile(np.asarray(qpos0, np.float64), (B, 1)) \
+        + rng.uniform(-0.15, 0.15, (B, p.nv))
+    q[:, 1] -= 0.4
+    return (q, rng.uniform(-1.0, 1.0, (B, p.nv)),
+            rng.uniform(-1.0, 1.0, (B, len(p.actuators))))
+
+
+def cheetah_explosion_states():
+    """The captured high-velocity half-cheetah states of tests/golden (the
+    one that had already exploded when it was captured is left out)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    d = np.load(os.path.join(here, "tests", "golden",
+                             "cheetah_explosion_states.npz"))
+    ts = [t for t in sorted(int(k[2:]) for k in d.files
+                            if k.startswith("t_"))
+          if np.abs(d[f"qvel_{t}"]).max() < 1e4]
+    return tuple(np.stack([d[f"{k}_{t}"] for t in ts]).astype(np.float64)
+                 for k in ("qpos", "qvel", "action"))
+
+
 def swimmer_test_states(B, seed):
     """Half random states (q in U(-.5,.5), v, u in U(-1,1)), half
     limit-active (hinges pushed 0.1..0.5 rad past the +-1.5 stops, moving
@@ -133,14 +259,19 @@ def phase_device():
     return smi
 
 
-def phase_build(p):
+def phase_build(models):
+    """models: name -> PlanarParams.  One nvcc per model, started together."""
     t0 = time.time()
-    info = cuda_planar.kernel_build_info(p)
+    infos = cuda_planar.build_kernels(models.values())
     emit({"phase": "build", "seconds": time.time() - t0,
-          "nvcc_seconds": info["build_seconds"], "ptxas": info["ptxas"],
-          "sources": ["mjrl_tpu_torch/csrc/planar_step.cu",
-                      "mjrl_tpu_torch/csrc/planar_body.cuh"]})
-    return info
+          "models": {name: {"kernel": cuda_planar.kernel_name(p),
+                            "source": cuda_planar.kernel_source(
+                                cuda_planar.kernel_name(p)),
+                            "nvcc_seconds": info["build_seconds"],
+                            "ptxas": info["ptxas"]}
+                     for (name, p), (_, info) in zip(models.items(), infos)},
+          "headers": ["mjrl_tpu_torch/csrc/planar_body.cuh",
+                      "mjrl_tpu_torch/csrc/planar_contact.cuh"]})
 
 
 def phase_kernels(p, smi):
@@ -185,8 +316,8 @@ def phase_kernels(p, smi):
     bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
     ops_ms = NUM_ENVS * ops_per_env / PEAK_FP32_PER_S * 1e3
     return {
-        "name": cuda_planar.KERNEL_NAME, "route": "cuda",
-        "source": cuda_planar.KERNEL_SOURCE,
+        "name": SMOOTH, "route": "cuda",
+        "source": cuda_planar.kernel_source(SMOOTH),
         "replaces": "mjrl_tpu/ops/pallas_planar.py:85",
         "launches": None,                    # filled in from the train phase
         "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
@@ -201,6 +332,92 @@ def phase_kernels(p, smi):
     }
 
 
+def check_contact_kernel(p, q, v, u, n, dtype):
+    """One launch of the contact kernel against the plain version on the
+    card -> (max abs error q, max abs error v)."""
+    dev = torch.device("cuda")
+    tq, tv, tu = (torch.tensor(a, dtype=dtype, device=dev)
+                  for a in (q, v, u))
+    gq, gv = cuda_planar.cuda_step_n_batched(p, tq, tv, tu, n)
+    torch.cuda.synchronize()
+    rq, rv = step_n_arrays(p, tq, tv, tu, n)
+    if not (torch.isfinite(gq).all() and torch.isfinite(gv).all()):
+        raise AssertionError("contact kernel output not finite")
+    tol_q, tol_v = CONTACT_TOL[dtype]
+    torch.testing.assert_close(gq, rq, rtol=tol_q, atol=tol_q)
+    torch.testing.assert_close(
+        gv, rv, rtol=tol_v, atol=tol_v * max(1.0, rv.abs().max().item()))
+    return (gq - rq).abs().max().item(), (gv - rv).abs().max().item()
+
+
+def phase_kernels_contact(envs, smi):
+    """envs: name -> env (Hopper, Walker2d, HalfCheetah)."""
+    dev = torch.device("cuda")
+    checks, worst, times = [], 0.0, {}
+    for name, env in envs.items():
+        p, n = env._planar, env.frame_skip
+        sets = [(f"B{B}", contact_test_states(p, env.model.qpos0, B, seed=B))
+                for B in (NUM_ENVS, 1000)]
+        if name == "half_cheetah":
+            sets.append(("explosion", cheetah_explosion_states()))
+        for label, (q, v, u) in sets:
+            for dtype in (torch.float64, torch.float32):
+                eq, ev = check_contact_kernel(p, q, v, u, n, dtype)
+                checks.append({"model": name, "states": label, "B": len(q),
+                               "dtype": str(dtype).split(".")[-1],
+                               "max_abs_err_q": eq, "max_abs_err_v": ev,
+                               "max_abs_v": float(np.abs(v).max()),
+                               "tol_q": CONTACT_TOL[dtype][0],
+                               "tol_v_rel": CONTACT_TOL[dtype][1]})
+                if dtype == torch.float32 and name == "hopper":
+                    worst = max(worst, eq, ev)
+        q, v, u = sets[0][1]
+        tq, tv, tu = (torch.tensor(a, dtype=torch.float32, device=dev)
+                      for a in (q, v, u))
+        times[name] = time_ms(lambda: cuda_planar.cuda_step_n_batched(
+            p, tq, tv, tu, n), 10)
+
+    # the main path's shape: Hopper, float32, 4096 environments, n = 4
+    env = envs["hopper"]
+    p, n = env._planar, env.frame_skip
+    q, v, u = contact_test_states(p, env.model.qpos0, NUM_ENVS, seed=1)
+    tq, tv, tu = (torch.tensor(a, dtype=torch.float32, device=dev)
+                  for a in (q, v, u))
+    ms = time_ms(lambda: cuda_planar.cuda_step_n_batched(p, tq, tv, tu, n),
+                 20)
+    plain_ms = time_ms(lambda: step_n_arrays(p, tq, tv, tu, n), 2)
+    tq64, tv64, tu64 = tq.double(), tv.double(), tu.double()
+    ms_f64 = time_ms(lambda: cuda_planar.cuda_step_n_batched(
+        p, tq64, tv64, tu64, n), 10)
+    # the work is fixed; is the time?  the same launch on states that are
+    # all in contact at moderate velocity
+    dq, dv, du = (torch.tensor(a, dtype=torch.float32, device=dev)
+                  for a in dropped_states(p, env.model.qpos0, NUM_ENVS, 2))
+    ms_dropped = time_ms(lambda: cuda_planar.cuda_step_n_batched(
+        p, dq, dv, du, n), 10)
+    ops_per_env, parts = count_contact_ops(p, n)
+    nbytes = NUM_ENVS * (4 * p.nv + len(p.actuators)) * 4
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    ops_ms = NUM_ENVS * ops_per_env / PEAK_FP32_PER_S * 1e3
+    return {
+        "name": CONTACT, "route": "cuda",
+        "source": cuda_planar.kernel_source(CONTACT),
+        "replaces": "mjrl_tpu/ops/pallas_planar.py:47",
+        "launches": None,             # filled in from the train_hopper phase
+        "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": None,   # no single PyTorch call computes this function
+        "ms_float64": ms_f64, "ms_dropped_states": ms_dropped,
+        "ops_per_env_step": ops_per_env, "ops_parts": parts, "bytes": nbytes, "bytes_ms": bytes_ms,
+        "ops_ms": ops_ms,
+        "ms_by_model_float32_B4096": times,
+        "shape": {"B": NUM_ENVS, "nv": p.nv, "nu": len(p.actuators),
+                  "n": n, "dtype": "float32"},
+        "card": smi, "checks": checks,
+    }
+
+
 def phase_rollout(kernel_ms):
     env = SwimmerEnv()
     assert env.device.type == "cuda"
@@ -208,7 +425,7 @@ def phase_rollout(kernel_ms):
     gen = make_generator(7, env.device)
     times = []
     for _ in range(2):          # first pass warms up
-        cuda_planar.launch_count = 0
+        cuda_planar.reset_launch_counts()
         torch.cuda.synchronize()
         t0 = time.time()
         batch = rollout_batch(env, policy.config, policy.params,
@@ -216,7 +433,7 @@ def phase_rollout(kernel_ms):
                               horizon=HORIZON)
         torch.cuda.synchronize()
         times.append(time.time() - t0)
-        launches = cuda_planar.launch_count
+        launches = cuda_planar.launch_counts[SMOOTH]
         if launches != HORIZON:
             raise AssertionError(
                 f"rollout launched the kernel {launches} times, expected "
@@ -236,31 +453,86 @@ def phase_rollout(kernel_ms):
           "mean_return": batch["rewards"].sum(1).mean().item()})
 
 
-def phase_train():
-    e = GymEnv("mjrl_swimmer-v0")
+def phase_rollout_hopper(kernel_ms):
+    env = HopperEnv()
+    assert env.device.type == "cuda"
+    policy = MLP(env.spec, hidden_sizes=(64, 64), seed=1)
+    gen = make_generator(7, env.device)
+    roll = lambda T: rollout_batch(env, policy.config, policy.params,
+                                   policy.transforms, gen, NUM_ENVS,
+                                   horizon=T)
+    roll(20)                                        # warms up
+    cuda_planar.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    batch = roll(HOPPER_HORIZON)
+    torch.cuda.synchronize()
+    seconds = time.time() - t0
+    launches = dict(cuda_planar.launch_counts)
+    if launches != {SMOOTH: 0, CONTACT: HOPPER_HORIZON}:
+        raise AssertionError(
+            f"hopper rollout launched {launches}, expected "
+            f"{HOPPER_HORIZON} of {CONTACT} only")
+    for k, leaf in batch.items():
+        if torch.is_tensor(leaf) and leaf.is_floating_point() \
+                and not torch.isfinite(leaf).all():
+            raise AssertionError(f"hopper rollout leaf {k} not finite")
+    if tuple(batch["observations"].shape) \
+            != (NUM_ENVS, HOPPER_HORIZON, 11) \
+            or tuple(batch["actions"].shape) != (NUM_ENVS, HOPPER_HORIZON, 3):
+        raise AssertionError("hopper rollout shapes wrong")
+    mask = batch["mask"]
+    if not bool((mask[:, :-1] >= mask[:, 1:]).all()) \
+            or not bool(((mask == 0) | (mask == 1)).all()):
+        raise AssertionError("mask is not a prefix of ones")
+    lengths = mask.sum(1)
+    n_term = int(batch["terminated"].sum())
+    if n_term == 0 or not bool((lengths < HOPPER_HORIZON).any()):
+        raise AssertionError("no episode terminated early")
+    if not bool((batch["terminated"] == (lengths < HOPPER_HORIZON)).all()):
+        raise AssertionError("terminated disagrees with the mask")
+    if float((batch["rewards"] * (1 - mask)).abs().sum()) != 0.0:
+        raise AssertionError("rewards after the end of an episode")
+    emit({"phase": "rollout_hopper", "num_envs": NUM_ENVS,
+          "horizon": HOPPER_HORIZON, "seconds": seconds,
+          "control_steps_per_s": NUM_ENVS * HOPPER_HORIZON / seconds,
+          "valid_steps": int(mask.sum()),
+          "kernel_launches": launches[CONTACT],
+          "kernel_share_of_rollout": launches[CONTACT] * kernel_ms * 1e-3
+          / seconds,
+          "terminated": n_term,
+          "mean_episode_length": lengths.mean().item(),
+          "mean_return": (batch["rewards"] * mask).sum(1).mean().item()})
+
+
+def phase_train(env_id, step_size, horizon, kernel, phase):
+    """The main path of ``env_id`` through the entry points a user calls;
+    -> launches of ``kernel``, counted from just before to just after."""
+    e = GymEnv(env_id)
     policy = MLP(e.spec, hidden_sizes=(64, 64))
     baseline = LinearBaseline(e.spec)
-    agent = NPG(e, policy, baseline, normalized_step_size=0.1,
+    agent = NPG(e, policy, baseline, normalized_step_size=step_size,
                 save_logs=True)
     assert agent.device.type == "cuda" and policy.device.type == "cuda"
+    other = SMOOTH if kernel == CONTACT else CONTACT
     with tempfile.TemporaryDirectory() as tmp:
-        job = os.path.join(tmp, "swimmer_npg")
-        cuda_planar.launch_count = 0          # just before the main path
+        job = os.path.join(tmp, phase)
+        cuda_planar.reset_launch_counts()     # just before the main path
         with contextlib.redirect_stdout(sys.stderr):
             train_agent(job, agent, seed=0, niter=NITER, num_traj=NUM_ENVS,
                         gamma=0.995, gae_lambda=0.97, save_freq=10)
         torch.cuda.synchronize()
-        launches = cuda_planar.launch_count   # just after
+        counts = dict(cuda_planar.launch_counts)    # just after
         for f in ("results.txt",
                   os.path.join("iterations", "policy_final.pickle"),
                   os.path.join("iterations", "checkpoint_final.pickle"),
                   os.path.join("logs", "log.csv")):
             if not os.path.exists(os.path.join(job, f)):
                 raise AssertionError(f"train_agent did not write {f}")
-    if launches != NITER * HORIZON:
+    if counts != {kernel: NITER * horizon, other: 0}:
         raise AssertionError(
-            f"training launched the kernel {launches} times, expected "
-            f"{NITER * HORIZON}")
+            f"training launched {counts}, expected {NITER * horizon} of "
+            f"{kernel} only")
     log = agent.logger.log
     for k, vals in log.items():
         if len(vals) != NITER or not np.all(np.isfinite(vals)):
@@ -273,14 +545,15 @@ def phase_train():
     if not all(s > 0 for s in log["surr_improvement"]):
         raise AssertionError(
             f"surr_improvement not positive: {log['surr_improvement']}")
-    emit({"phase": "train", "iterations": NITER, "num_traj": NUM_ENVS,
-          "kernel_launches": launches,
+    emit({"phase": phase, "env": env_id, "iterations": NITER,
+          "num_traj": NUM_ENVS, "kernel_launches": counts,
+          "num_samples": log["num_samples"],
           "time_sampling": log["time_sampling"],
           "time_npg": log["time_npg"], "time_VF": log["time_VF"],
           "kl_dist": log["kl_dist"],
           "surr_improvement": log["surr_improvement"],
           "stoc_pol_mean": log["stoc_pol_mean"]})
-    return launches
+    return counts[kernel]
 
 
 def main():
@@ -289,19 +562,29 @@ def main():
         smi = phase_device()
         torch.backends.cuda.matmul.allow_tf32 = False
         p = SwimmerEnv()._planar
+        contact_envs = {"hopper": HopperEnv(), "walker2d": Walker2dEnv(),
+                        "half_cheetah": HalfCheetahEnv()}
         phase = "build"
-        phase_build(p)
+        phase_build({"swimmer": p, **{k: e._planar
+                                      for k, e in contact_envs.items()}})
         phase = "kernels"
         kernel = phase_kernels(p, smi)
+        contact = phase_kernels_contact(contact_envs, smi)
         phase = "rollout"
         phase_rollout(kernel["ms"])
         phase = "train"
-        kernel["launches"] = phase_train()
+        kernel["launches"] = phase_train("mjrl_swimmer-v0", 0.1, HORIZON,
+                                         SMOOTH, "train")
+        phase = "rollout_hopper"
+        phase_rollout_hopper(contact["ms"])
+        phase = "train_hopper"
+        contact["launches"] = phase_train("Hopper-v3", 0.05, HOPPER_HORIZON,
+                                          CONTACT, "train_hopper")
     except Exception:
         traceback.print_exc()
         print(f"chip_smoke: phase '{phase}' failed", file=sys.stderr)
         sys.exit(1)
-    emit({"kernels": [kernel]})
+    emit({"kernels": [kernel, contact]})
     print(smi, flush=True)
     emit({"ok": True,
           "device": {"platform": "gpu",

@@ -1,7 +1,9 @@
 // Per-environment body of the planar whole-control-step kernel.
 //
-// One call of planar::substep<T, M> advances ONE environment by one
-// semi-implicit Euler physics step: planar FK, composite-rigid-body mass
+// One call of planar::substep<T, M> advances ONE environment of a smooth
+// chain by one semi-implicit Euler physics step; planar::smooth<T, M>, its
+// first half, is shared with the contact kernel (planar_contact.cuh).
+// The step: planar FK, composite-rigid-body mass
 // matrix + armature, Coriolis bias via cdofdot, MuJoCo inertia-box fluid
 // force, gravity / joint springs / damping, clipped gear actuation, an
 // unrolled Cholesky factorization, the implicit joint-limit dual over the
@@ -160,15 +162,34 @@ PLANAR_HD void chol_solve(const T (&low)[NV][NV], const T (&rhs)[NV],
   }
 }
 
-// One semi-implicit Euler substep, in place on q[NV], v[NV]; u[NU] is the
-// (unclipped) control.
+// What the constraint code needs of the kinematics: body rotations and
+// origins, and the per-dof motion axes (omega, u).
 template <typename T, typename M>
-PLANAR_HD void substep(T (&q)[M::NV], T (&v)[M::NV], const T (&u)[M::NU]) {
-  constexpr int NV = M::NV, NB = M::NB, NU = M::NU, NL = M::NL;
+struct Kinematics {
+  T cph[M::NB], sph[M::NB], orgx[M::NB], orgy[M::NB];
+  T sw[M::NV], sx[M::NV], sy[M::NV];
+};
+
+// Smooth dynamics at (q, v) under the (unclipped) control u: the mass
+// matrix (upper triangle of m, armature included) and the constraint-free
+// applied force qfrc = actuation + damping + springs - bias; kin receives
+// the kinematics.
+template <typename T, typename M>
+PLANAR_HD void smooth(const T (&q)[M::NV], const T (&v)[M::NV],
+                      const T (&u)[M::NU], Kinematics<T, M>& kin,
+                      T (&m)[M::NV][M::NV], T (&qfrc)[M::NV]) {
+  constexpr int NV = M::NV, NB = M::NB, NU = M::NU;
   const T zero = T(0), one = T(1);
+  T (&cph)[NB] = kin.cph;
+  T (&sph)[NB] = kin.sph;
+  T (&orgx)[NB] = kin.orgx;
+  T (&orgy)[NB] = kin.orgy;
+  T (&sw)[NV] = kin.sw;
+  T (&sx)[NV] = kin.sx;
+  T (&sy)[NV] = kin.sy;
 
   // ---- FK: body angles, origins, hinge anchors, world CoMs ----------------
-  T phi[NB], cph[NB], sph[NB], orgx[NB], orgy[NB], ancx[NB], ancy[NB];
+  T phi[NB], ancx[NB], ancy[NB];
   T comx[NB], comy[NB];
   {
     const T q0 = q[0] - T(M::slide_ref(0));
@@ -206,7 +227,6 @@ PLANAR_HD void substep(T (&q)[M::NV], T (&v)[M::NV], const T (&u)[M::NU]) {
   }
 
   // ---- per-dof motion axes (omega, u) --------------------------------------
-  T sw[NV], sx[NV], sy[NV];
   sw[0] = zero; sx[0] = T(M::slide_dir(0, 0)) * one;
   sy[0] = T(M::slide_dir(0, 1)) * one;
   sw[1] = zero; sx[1] = T(M::slide_dir(1, 0)) * one;
@@ -239,7 +259,6 @@ PLANAR_HD void substep(T (&q)[M::NV], T (&v)[M::NV], const T (&u)[M::NU]) {
   }
 
   // ---- mass matrix (upper triangle) + armature ------------------------------
-  T m[NV][NV];
   PLANAR_UNROLL
   for (int d = 0; d < NV; ++d) {
     PLANAR_UNROLL
@@ -306,7 +325,6 @@ PLANAR_HD void substep(T (&q)[M::NV], T (&v)[M::NV], const T (&u)[M::NU]) {
   }
 
   // ---- applied forces: damping, springs, clipped gear actuation --------------
-  T qfrc[NV];
   PLANAR_UNROLL
   for (int d = 0; d < NV; ++d) {
     qfrc[d] = T(-M::damping(d)) * v[d] - bias[d];
@@ -320,6 +338,17 @@ PLANAR_HD void substep(T (&q)[M::NV], T (&v)[M::NV], const T (&u)[M::NU]) {
         ? clamp(u[i], T(M::ctrl_lo(i)), T(M::ctrl_hi(i))) : u[i];
     qfrc[M::act_dof(i)] = qfrc[M::act_dof(i)] + T(M::gear(i)) * c;
   }
+}
+
+// One semi-implicit Euler substep of a SMOOTH chain (no contacts), in place
+// on q[NV], v[NV]; u[NU] is the (unclipped) control.
+template <typename T, typename M>
+PLANAR_HD void substep(T (&q)[M::NV], T (&v)[M::NV], const T (&u)[M::NU]) {
+  constexpr int NV = M::NV, NL = M::NL;
+  const T zero = T(0), one = T(1);
+  Kinematics<T, M> kin;
+  T m[NV][NV], qfrc[NV];
+  smooth<T, M>(q, v, u, kin, m, qfrc);
 
   T low[NV][NV];
   cholesky<T, NV>(m, low);

@@ -1,11 +1,14 @@
-// Host harness for the planar kernel body: compiles planar_body.cuh with
-// g++ and steps a batch of environments in a plain loop, so the kernel's
+// Host harness for the planar kernel bodies: compiles planar_body.cuh (the
+// smooth kernel) and planar_contact.cuh (the contact / RK4 kernel) with g++
+// and steps a batch of environments in a plain loop, so the kernels'
 // arithmetic can be held against the plain PyTorch version without a GPU
-// (tests/test_torch_kernel_host.py).  Same C interface as planar_step.cu,
-// minus the stream.
+// (tests/test_torch_kernel_host.py).  The model picks the body, as the
+// wrapper picks the kernel.  Same C interface as the .cu files, minus the
+// stream.
 
 #include "planar_model.cuh"
 #include "planar_body.cuh"
+#include "planar_contact.cuh"
 
 namespace {
 
@@ -20,7 +23,11 @@ void step_batch(const T* qpos, const T* qvel, const T* ctrl, T* qout,
       v[d] = qvel[env * NV + d];
     }
     for (int i = 0; i < NU; ++i) u[i] = ctrl[env * NU + i];
-    for (int s = 0; s < n; ++s) planar::substep<T, PlanarModel>(q, v, u);
+    if (PlanarModel::CONTACT_PATH) {
+      planar::contact_step_n<T, PlanarModel>(q, v, u, n);
+    } else {
+      for (int s = 0; s < n; ++s) planar::substep<T, PlanarModel>(q, v, u);
+    }
     for (int d = 0; d < NV; ++d) {
       qout[env * NV + d] = q[d];
       vout[env * NV + d] = v[d];

@@ -1,11 +1,14 @@
 """Environment registry (counterpart of ``mjrl_tpu/envs/__init__.py``).
 
 ``make(env_id)`` returns a functional env; ``GymEnv(env_id)`` wraps it with
-the stateful host-side API.  Only the swimmer is ported so far; the
-remaining ids are listed in ROADMAP.md queue 1.
+the stateful host-side API.  Ported so far: the swimmer and the planar
+gym locomotion suite (Hopper, Walker2d, HalfCheetah); the remaining ids are
+listed in ROADMAP.md queue 1.
 """
 
 from mjrl_tpu_torch.envs.base import EnvSpec, EnvState, MujocoLikeEnv
+from mjrl_tpu_torch.envs.gym_suite import (HalfCheetahEnv, HopperEnv,
+                                           Walker2dEnv)
 from mjrl_tpu_torch.envs.swimmer import SwimmerEnv
 
 _REGISTRY = {}
@@ -29,5 +32,11 @@ def make(env_id, **overrides):
 
 
 register("mjrl_swimmer-v0", SwimmerEnv)
+for _id in ("Hopper-v3", "Hopper-v4"):
+    register(_id, HopperEnv)
+for _id in ("HalfCheetah-v3", "HalfCheetah-v4"):
+    register(_id, HalfCheetahEnv)
+for _id in ("Walker2d-v3", "Walker2d-v4"):
+    register(_id, Walker2dEnv)
 
 from mjrl_tpu_torch.envs.gym_env import GymEnv  # noqa: E402  (needs _REGISTRY)

@@ -1,22 +1,31 @@
-"""The planar whole-control-step kernel for NVIDIA Hopper, and its wrapper.
+"""The planar whole-control-step kernels for NVIDIA Hopper, and their wrapper.
 
 Counterpart of ``mjrl_tpu/ops/pallas_planar.py`` (``pallas_step_n_batched``
-and the smooth branch of its ``_kernel``).  The kernel is hand-written CUDA
-C++: ``csrc/planar_step.cu`` (launch, layout) around
-``csrc/planar_body.cuh`` (the per-environment arithmetic, a template on the
-scalar type and on a model-traits struct).  ``emit_model_header`` writes
-that struct from a ``PlanarParams`` — sizes, tree structure and every
-physical constant as ``constexpr`` — into the build directory, so the body
-unrolls completely, as the Pallas kernel bakes its constants at trace time.
+and both branches of its ``_kernel``).  The kernels are hand-written CUDA
+C++, each a ``.cu`` file (launch, layout) around a header with the
+per-environment arithmetic, a template on the scalar type and on a
+model-traits struct:
+
+- ``planar_step_smooth``: ``csrc/planar_step.cu`` around
+  ``csrc/planar_body.cuh`` — smooth Euler chains (the swimmer);
+- ``planar_step_contact``: ``csrc/planar_contact_step.cu`` around
+  ``csrc/planar_contact.cuh`` — trees with ground contacts and/or RK4
+  (hopper, walker2d, half-cheetah).
+
+``emit_model_header`` writes the traits struct from a ``PlanarParams`` —
+sizes, tree structure, contact tables and every physical constant as
+``constexpr`` — into the build directory, so the model's structure unrolls
+at compile time, as the Pallas kernel bakes its constants at trace time.
 
 Build: ``nvcc`` for ``sm_90a`` into a shared library with a plain C
 interface, loaded with ``ctypes``; at first use, from ``csrc/`` alone, into
 ``mjrl_tpu_torch/_build/<hash>/``.  Importing this module needs neither CUDA
-nor ``nvcc``; asking for the kernel without them raises.
+nor ``nvcc``; asking for a kernel without them raises.
 
-``cuda_step_n_batched`` launches the kernel for CUDA tensors and raises if
-it cannot; for CPU tensors, and only then, it runs the plain PyTorch
-version ``physics.planar.step_n_arrays``.  There is no gradient: the policy
+``cuda_step_n_batched`` is the one entry: for CUDA tensors it launches the
+kernel the model needs (``needs_contact_path``) and raises if it cannot; for
+CPU tensors, and only then, it runs the plain PyTorch version
+``physics.planar.step_n_arrays``.  There is no gradient: the policy
 gradient never differentiates through the physics.
 """
 
@@ -31,21 +40,46 @@ import time
 
 import torch
 
-from mjrl_tpu_torch.physics.planar import (PGS_SWEEPS, PlanarParams,
-                                           _tree_tables, chain_mask,
-                                           fluid_constants,
+from mjrl_tpu_torch.physics.model import ELLIPTIC as ELLIPTIC_CONE, EULER
+from mjrl_tpu_torch.physics.planar import (PGS_SWEEPS, POWER_ITERS, SWEEPS,
+                                           SWEEPS_WARM, PlanarParams,
+                                           _planar_soc, _tree_tables,
+                                           chain_mask, fluid_constants,
+                                           n_planar_rows,
                                            needs_contact_path, step_n_arrays)
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 
-KERNEL_NAME = "planar_step_smooth"
-KERNEL_SOURCE = "mjrl_tpu_torch/csrc/planar_step.cu"
+# kernel name -> (.cu file, headers it includes, C entry prefix)
+KERNELS = {
+    "planar_step_smooth": ("planar_step.cu", ("planar_body.cuh",),
+                           "planar_step"),
+    "planar_step_contact": ("planar_contact_step.cu",
+                            ("planar_body.cuh", "planar_contact.cuh"),
+                            "planar_contact_step"),
+}
 
-# number of kernel launches made by cuda_step_n_batched (plain integer;
-# callers that want a per-phase count set it to 0 first)
-launch_count = 0
+# launches made by cuda_step_n_batched, per kernel (plain integers; callers
+# that want a per-phase count set them to 0 first)
+launch_counts = {name: 0 for name in KERNELS}
+
+
+def reset_launch_counts():
+    for name in launch_counts:
+        launch_counts[name] = 0
+
+
+def kernel_name(p: PlanarParams) -> str:
+    """The kernel that steps ``p``: the same test as the TPU kernel's
+    branch (contacts or RK4 -> the contact kernel)."""
+    return "planar_step_contact" if needs_contact_path(p) \
+        else "planar_step_smooth"
+
+
+def kernel_source(name: str) -> str:
+    return "mjrl_tpu_torch/csrc/" + KERNELS[name][0]
 
 _libs = {}          # PlanarParams -> (ctypes lib, build info dict)
 _host_libs = {}     # PlanarParams -> ctypes lib (g++ build of the body)
@@ -85,8 +119,6 @@ def emit_model_header(p: PlanarParams) -> str:
     constants (fluid coefficients, clamped solimp mid, floored width) are
     computed here in double precision exactly as the plain version
     computes them in python floats."""
-    if needs_contact_path(p):
-        raise NotImplementedError("K2, ROADMAP queue 2")
     nv, nb, nu = p.nv, p.nbody, len(p.actuators)
     par, hs, jp = _tree_tables(p)
     chain = chain_mask(p)
@@ -96,10 +128,35 @@ def emit_model_header(p: PlanarParams) -> str:
     stiffness = p.stiffness if p.stiffness else (0.0,) * nv
     spring_ref = p.spring_ref if p.spring_ref else (0.0,) * nv
 
-    def solimp_row(d):
-        d0, dw, width, mid, power = p.solimp[d]
+    def solimp_row(si):
+        d0, dw, width, mid, power = si
         return [d0, dw, max(width, 1e-12),
                 min(max(mid, 1e-4), 1.0 - 1e-4), power]
+
+    # contact tables: points (plane-sphere, capsule end caps) first, then
+    # capsule-capsule pairs; the shared per-contact constants are indexed
+    # over both.  Rows: limits, then per contact one normal row (condim 1)
+    # or 4 pyramidal facets inline; elliptic triples go to the block
+    # [n(K), t1(K), t2(K)] that starts at soc_start.
+    pts, ccs = p.contacts_pt, p.contacts_cc
+    shared = [c[5:11] for c in pts] + [c[8:14] for c in ccs]
+    elliptic = p.cone == ELLIPTIC_CONE
+    con_row, con_tri, tri_mu = [], [], []
+    r = len(lim)
+    for (_kc, _bc, _si, mu, _iw, cd) in shared:
+        if cd == 1:
+            con_row.append(r); con_tri.append(-1); r += 1
+        elif elliptic:
+            con_row.append(-1); con_tri.append(len(tri_mu))
+            tri_mu.append(mu)
+        else:
+            con_row.append(r); con_tri.append(-1); r += 4
+    soc_start, ntri = r, len(tri_mu)
+    nrows = soc_start + 3 * ntri
+    if nrows != n_planar_rows(p):
+        raise AssertionError("row layout disagrees with n_planar_rows")
+    if ntri and _planar_soc(p) != (soc_start, ntri, tuple(tri_mu)):
+        raise AssertionError("elliptic block disagrees with _planar_soc")
 
     flat2 = lambda rows: [x for r in rows for x in r]
     out = ["// generated by mjrl_tpu_torch/ops/cuda_planar.py::"
@@ -111,6 +168,14 @@ def emit_model_header(p: PlanarParams) -> str:
            f"  static constexpr int NV = {nv}, NB = {nb}, NU = {nu}, "
            f"NL = {len(lim)};\n"
            f"  static constexpr int PGS_SWEEPS = {PGS_SWEEPS};\n"
+           f"  static constexpr int NPT = {len(pts)}, NCC = {len(ccs)}, "
+           f"NROWS = {nrows}, NTRI = {ntri}, SOC_START = {soc_start};\n"
+           f"  static constexpr int SWEEPS = {SWEEPS}, SWEEPS_WARM = "
+           f"{SWEEPS_WARM}, POWER_ITERS = {POWER_ITERS};\n"
+           "  static constexpr bool CONTACT_PATH = "
+           f"{str(needs_contact_path(p)).lower()};\n"
+           "  static constexpr bool RK4 = "
+           f"{str(p.integrator != EULER).lower()};\n"
            f"  static constexpr double H = {_lit(p.timestep)};\n"
            f"  static constexpr bool HAS_FLUID = {str(has_fluid).lower()};\n"
            "  static constexpr bool HAS_GRAVITY = "
@@ -150,13 +215,42 @@ def emit_model_header(p: PlanarParams) -> str:
         A("limit_b", "double", [p.limit_b[d] for d in lim], (len(lim),)),
         A("invweight0", "double", [p.invweight0[d] for d in lim],
           (len(lim),)),
-        A("solimp", "double", flat2([solimp_row(d) for d in lim]),
+        A("solimp", "double", flat2([solimp_row(p.solimp[d]) for d in lim]),
           (len(lim), 5)),
         A("act_dof", "int", [a[0] for a in p.actuators], (nu,)),
         A("gear", "double", [a[1] for a in p.actuators], (nu,)),
         A("ctrl_lo", "double", [a[2] for a in p.actuators], (nu,)),
         A("ctrl_hi", "double", [a[3] for a in p.actuators], (nu,)),
         A("ctrl_limited", "int", [bool(a[4]) for a in p.actuators], (nu,)),
+        # ---- contacts ----
+        A("pt_body", "int", [c[0] for c in pts], (len(pts),)),
+        A("pt_local", "double", flat2([c[1] for c in pts]), (len(pts), 2)),
+        A("pt_radius", "double", [c[2] for c in pts], (len(pts),)),
+        A("pt_up", "double", flat2([c[3] for c in pts]), (len(pts), 2)),
+        A("pt_h0", "double", [c[4] for c in pts], (len(pts),)),
+        A("cc_body", "int", flat2([(c[0], c[4]) for c in ccs]),
+          (len(ccs), 2)),
+        # endpoints: [pair][A0, A1, B0, B1][x, y]
+        A("cc_end", "double",
+          [x for c in ccs for pt in (c[1], c[2], c[5], c[6]) for x in pt],
+          (len(ccs), 4, 2)),
+        A("cc_radius", "double", flat2([(c[3], c[7]) for c in ccs]),
+          (len(ccs), 2)),
+        A("con_k", "double", [c[0] for c in shared], (len(shared),)),
+        A("con_b", "double", [c[1] for c in shared], (len(shared),)),
+        A("con_solimp", "double",
+          flat2([solimp_row(c[2]) for c in shared]), (len(shared), 5)),
+        A("con_mu", "double", [c[3] for c in shared], (len(shared),)),
+        A("con_invweight", "double", [c[4] for c in shared],
+          (len(shared),)),
+        # pyramidal facet regularizer scale iw * 2 mu^2 (1 + mu^2)
+        A("con_pyramid_weight", "double",
+          [c[4] * 2.0 * c[3] * c[3] * (1.0 + c[3] * c[3]) for c in shared],
+          (len(shared),)),
+        A("con_condim", "int", [c[5] for c in shared], (len(shared),)),
+        A("con_row", "int", con_row, (len(shared),)),
+        A("con_tri", "int", con_tri, (len(shared),)),
+        A("tri_mu", "double", tri_mu, (ntri,)),
         "};\n"]
     return "".join(out)
 
@@ -241,8 +335,9 @@ def _parse_ptxas(log: str):
 def build_kernel(p: PlanarParams):
     """Build (or find built) the CUDA library for ``p`` ->
     (lib path, info dict with build seconds and ptxas figures)."""
+    source, headers, _ = KERNELS[kernel_name(p)]
     header = emit_model_header(p)
-    bdir = _build_dir_for(header, ("planar_step.cu", "planar_body.cuh"))
+    bdir = _build_dir_for(header, (source,) + headers)
     so = os.path.join(bdir, "libplanar_step.so")
     log_path = os.path.join(bdir, "nvcc.log")
     seconds = 0.0
@@ -257,10 +352,19 @@ def build_kernel(p: PlanarParams):
             [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
              "-I", bdir, "-I", CSRC_DIR,
-             os.path.join(CSRC_DIR, "planar_step.cu")], so, log_path)
+             os.path.join(CSRC_DIR, source)], so, log_path)
     with open(log_path) as f:
         ptxas = _parse_ptxas(f.read())
     return so, dict(build_seconds=seconds, ptxas=ptxas, build_dir=bdir)
+
+
+def build_kernels(params):
+    """Build the kernels of several models at once, one ``nvcc`` per model,
+    all started together -> list of (lib path, info dict) in order."""
+    from concurrent.futures import ThreadPoolExecutor
+    params = list(params)
+    with ThreadPoolExecutor(max(1, len(params))) as pool:
+        return list(pool.map(build_kernel, params))
 
 
 def _load_kernel(p: PlanarParams):
@@ -269,7 +373,11 @@ def _load_kernel(p: PlanarParams):
         so, info = build_kernel(p)
         lib = ctypes.CDLL(so)
         vp = ctypes.c_void_p
-        for fn in (lib.planar_step_f32, lib.planar_step_f64):
+        entry = KERNELS[kernel_name(p)][2]
+        fns = {}
+        for dtype, suffix in ((torch.float32, "_f32"),
+                              (torch.float64, "_f64")):
+            fn = fns[dtype] = getattr(lib, entry + suffix)
             fn.argtypes = [vp, vp, vp, vp, vp, ctypes.c_int, ctypes.c_int,
                            vp]
             fn.restype = ctypes.c_int
@@ -277,7 +385,7 @@ def _load_kernel(p: PlanarParams):
         lib.planar_model_dims(dims)
         if tuple(dims)[:3] != (p.nv, p.nbody, len(p.actuators)):
             raise RuntimeError("kernel library built for another model")
-        hit = _libs[p] = (lib, info)
+        hit = _libs[p] = (fns, info)
     return hit
 
 
@@ -296,7 +404,8 @@ def load_host_body(p: PlanarParams):
         if gxx is None:
             raise RuntimeError("g++ not found")
         header = emit_model_header(p)
-        bdir = _build_dir_for(header, ("planar_host.cpp", "planar_body.cuh"))
+        bdir = _build_dir_for(header, ("planar_host.cpp", "planar_body.cuh",
+                                       "planar_contact.cuh"))
         so = os.path.join(bdir, "libplanar_host.so")
         if not os.path.exists(so):
             _write_header(bdir, header)
@@ -340,10 +449,10 @@ def cuda_step_n_batched(p: PlanarParams, qpos, qvel, ctrl, n: int):
     """(B, nv), (B, nv), (B, nu) -> stepped (B, nv) x2: one whole control
     step (``n`` substeps) for every environment.
 
-    CUDA tensors: one launch of the hand-written kernel on the current
-    stream, no synchronisation; anything the kernel does not take raises.
-    CPU tensors: the plain PyTorch version."""
-    global launch_count
+    CUDA tensors: one launch of the hand-written kernel the model needs
+    (smooth, or contact / RK4) on the current stream, no synchronisation;
+    anything the kernel does not take raises.  CPU tensors: the plain
+    PyTorch version."""
     if qpos.device.type == "cpu":
         return step_n_arrays(p, qpos, qvel, ctrl, n)
     if qpos.device.type != "cuda":
@@ -367,17 +476,16 @@ def cuda_step_n_batched(p: PlanarParams, qpos, qvel, ctrl, n: int):
     for name, t in (("qpos", qpos), ("qvel", qvel), ("ctrl", ctrl)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    lib, _ = _load_kernel(p)
+    fns, _ = _load_kernel(p)
     qout = torch.empty_like(qpos)
     vout = torch.empty_like(qvel)
-    fn = lib.planar_step_f32 if qpos.dtype == torch.float32 \
-        else lib.planar_step_f64
+    fn = fns[qpos.dtype]
     with torch.cuda.device(qpos.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(qpos.data_ptr(), qvel.data_ptr(), ctrl.data_ptr(),
                 qout.data_ptr(), vout.data_ptr(), B, int(n), stream)
+    name = kernel_name(p)
     if rc != 0:
-        raise RuntimeError(f"planar_step kernel launch failed: CUDA error "
-                           f"{rc}")
-    launch_count += 1
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+    launch_counts[name] += 1
     return qout, vout

@@ -1,0 +1,450 @@
+"""MJCF (MuJoCo XML) parser -> ModelBuilder -> Model (counterpart of
+``mjrl_tpu/physics/mjcf.py``; host side, numpy only).
+
+Parses the MJCF subset used by the mjrl asset suite and typical planar
+locomotion models:
+
+- compiler: angle (degree/radian), inertiafromgeom, coordinate=local,
+  settotalmass
+- option: timestep, gravity, integrator, viscosity, density, cone,
+  noslip_iterations
+- nested default blocks with class inheritance (joint/geom/motor),
+  body childclass
+- body (pos, quat, axisangle, euler), joint (slide/hinge/ball/free; axis,
+  pos, range, damping, armature, stiffness, limited, ref, solreflimit),
+  geom (plane/sphere/capsule/cylinder/box; size, fromto, pos, quat,
+  axisangle, density, mass, contype, conaffinity, friction, margin,
+  condim, solref, solimp), site (pos), explicit <inertial>
+- actuators: motor, position (kp/kv), velocity (kv), general
+  (gainprm/biasprm); joint or fixed-tendon transmission, ctrlrange
+- fixed tendons, <contact> pairs/excludes and <equality> constraints
+
+The parser hands every element to the port's ``ModelBuilder``.  What it
+cannot build yet — free/ball joints, servo actuators and vector
+gears, tendons, explicit contact pairs, equalities — raises
+``NotImplementedError`` there, naming the item (ROADMAP.md M8/M9).
+"""
+
+import math
+import os
+import xml.etree.ElementTree as ET
+
+import numpy as np
+
+from mjrl_tpu_torch.physics.model import ModelBuilder
+
+
+def _splice_includes(root, base_dir):
+    """Resolve <include file="..."/> elements recursively: each is
+    replaced in place by the children of the included document's root
+    (<mujoco> or <mujocoinclude>) — MuJoCo's include semantics.  Works
+    at any nesting depth (Adroit includes the hand model INSIDE a
+    worldbody body)."""
+    i = 0
+    while i < len(root):
+        child = root[i]
+        if child.tag == "include":
+            fname = child.get("file")
+            if base_dir is None:
+                raise ValueError(
+                    "<include> requires a file path (load_mjcf(path=...)) "
+                    "so relative includes can be resolved")
+            sub = ET.parse(os.path.join(base_dir, fname)).getroot()
+            _splice_includes(sub, base_dir)
+            root.remove(child)
+            for j, new in enumerate(list(sub)):
+                root.insert(i + j, new)
+            # spliced elements are themselves include-free now; continue
+            # scanning from the same position to process them as children
+        else:
+            _splice_includes(child, base_dir)
+            i += 1
+    return root
+
+
+def _floats(s):
+    return np.array([float(x) for x in s.split()])
+
+
+def _solparam(attrib, key, default):
+    """solref/solimp attributes: a partial spec keeps MuJoCo defaults for
+    the trailing components."""
+    if key not in attrib:
+        return tuple(default)
+    vals = list(_floats(attrib[key]))
+    return tuple(vals + list(default)[len(vals):])
+
+
+_SOLIMP_DEFAULT = (0.9, 0.95, 0.001, 0.5, 2.0)
+_SOLREF_DEFAULT = (0.02, 1.0)
+
+
+def _friction3(s):
+    """Partial friction specs keep MuJoCo defaults for the missing
+    torsional/rolling components."""
+    vals = list(_floats(s))
+    defaults = [1.0, 0.005, 0.0001]
+    return tuple(vals + defaults[len(vals):])
+
+
+def _axisangle_quat(axis, angle):
+    axis = np.asarray(axis, np.float64)
+    n = np.linalg.norm(axis)
+    axis = axis / (n if n > 0 else 1.0)
+    return np.concatenate([[np.cos(angle / 2)], axis * np.sin(angle / 2)])
+
+
+def _euler_quat(euler):
+    """MuJoCo default eulerseq 'xyz' — lowercase letters are INTRINSIC
+    (moving-axes) rotations, so q = qx ⊗ qy ⊗ qz (verified against the
+    MuJoCo compiler; extrinsic composition only agrees for single-axis
+    eulers like the reference assets')."""
+    qx = _axisangle_quat([1, 0, 0], euler[0])
+    qy = _axisangle_quat([0, 1, 0], euler[1])
+    qz = _axisangle_quat([0, 0, 1], euler[2])
+
+    def mul(a, b):
+        w1, x1, y1, z1 = a
+        w2, x2, y2, z2 = b
+        return np.array([
+            w1 * w2 - x1 * x2 - y1 * y2 - z1 * z2,
+            w1 * x2 + x1 * w2 + y1 * z2 - z1 * y2,
+            w1 * y2 - x1 * z2 + y1 * w2 + z1 * x2,
+            w1 * z2 + x1 * y2 - y1 * x2 + z1 * w2])
+    return mul(mul(qx, qy), qz)
+
+
+class _Defaults:
+    """Nested default-class resolution (MJCF <default> blocks)."""
+
+    def __init__(self):
+        self.classes = {"main": self._empty(None)}
+
+    @staticmethod
+    def _empty(parent):
+        return {"joint": {}, "geom": {}, "motor": {}, "position": {},
+                "velocity": {}, "general": {}, "site": {}, "tendon": {},
+                "parent": parent}
+
+    def parse(self, elem, parent="main"):
+        cls = elem.get("class", parent if elem is not None else "main")
+        if cls not in self.classes:
+            self.classes[cls] = self._empty(parent)
+        for child in elem:
+            if child.tag in ("joint", "geom", "motor", "position",
+                             "velocity", "general", "site", "tendon"):
+                self.classes[cls][child.tag].update(child.attrib)
+            elif child.tag == "default":
+                self.parse(child, parent=cls)
+
+    def resolve(self, kind, cls, attrib):
+        """Effective attributes: class chain defaults overridden by the
+        element's own attributes."""
+        chain = []
+        c = cls
+        while c is not None and c in self.classes:
+            chain.append(c)
+            c = self.classes[c]["parent"]
+        merged = {}
+        for c in reversed(chain):
+            merged.update(self.classes[c].get(kind, {}))
+        merged.update(attrib)
+        return merged
+
+
+def load_mjcf(path=None, xml_string=None):
+    """Parse an MJCF document -> ModelBuilder (call .finalize() for the
+    Model)."""
+    root = ET.fromstring(xml_string) if xml_string is not None \
+        else ET.parse(path).getroot()
+    assert root.tag == "mujoco"
+    _splice_includes(root, os.path.dirname(os.path.abspath(path))
+                     if path is not None else None)
+
+    # a document + its includes may each carry compiler/option elements;
+    # merge attributes in document order (later files refine earlier)
+    compiler = {}
+    for c in root.findall("compiler"):
+        compiler.update(c.attrib)
+    angle = compiler.get("angle", "degree")
+    to_rad = (math.pi / 180.0) if angle == "degree" else 1.0
+
+    opt_attrs = {}
+    for o in root.findall("option"):
+        opt_attrs.update(o.attrib)
+
+    def opt_get(name, default):
+        return opt_attrs.get(name, default)
+
+    mb = ModelBuilder(
+        timestep=float(opt_get("timestep", "0.002")),
+        gravity=tuple(_floats(opt_get("gravity", "0 0 -9.81"))),
+        integrator=opt_get("integrator", "Euler").lower()
+        if opt_get("integrator", "Euler").lower() in ("euler",)
+        else "rk4",
+        viscosity=float(opt_get("viscosity", "0")),
+        density=float(opt_get("density", "0")),
+        cone=opt_get("cone", "pyramidal"),
+        noslip_iterations=int(opt_get("noslip_iterations", "0")),
+        settotalmass=(float(compiler["settotalmass"])
+                      if "settotalmass" in compiler else None))
+
+    defaults = _Defaults()
+    for d in root.findall("default"):
+        defaults.parse(d)
+
+    def elem_quat(attrib):
+        if "quat" in attrib:
+            q = _floats(attrib["quat"])
+            return q / np.linalg.norm(q)
+        if "axisangle" in attrib:
+            aa = _floats(attrib["axisangle"])
+            return _axisangle_quat(aa[:3], aa[3] * to_rad)
+        if "euler" in attrib:
+            return _euler_quat(_floats(attrib["euler"]) * to_rad)
+        return np.array([1.0, 0, 0, 0])
+
+    def add_geom(body_id, g, cls):
+        a = defaults.resolve("geom", g.get("class", cls), g.attrib)
+        gtype = a.get("type", "sphere")
+        if gtype == "mesh" or "mesh" in a:
+            # mesh geoms are supported only as VISUAL geometry: they must
+            # be non-colliding and their body must declare an explicit
+            # <inertial> (the Adroit pattern — class D_Vizual meshes are
+            # contype 0 conaffinity 0 and every body carries inertials)
+            if int(a.get("contype", "1")) or int(a.get("conaffinity", "1")):
+                raise NotImplementedError(
+                    "collidable mesh geoms are not supported (mesh "
+                    "narrowphase); visual-only meshes (contype=0 "
+                    "conaffinity=0) are skipped")
+            mesh_bodies.add(body_id)
+            return
+        kwargs = dict(
+            gtype=gtype,
+            size=tuple(_floats(a["size"])) if "size" in a else (0.0,),
+            pos=tuple(_floats(a.get("pos", "0 0 0"))),
+            quat=tuple(elem_quat(a)),
+            density=float(a.get("density", "1000")),
+            mass=float(a["mass"]) if "mass" in a else None,
+            contype=int(a.get("contype", "1")),
+            conaffinity=int(a.get("conaffinity", "1")),
+            friction=_friction3(a.get("friction", "1 0.005 0.0001")),
+            margin=float(a.get("margin", "0")),
+            solref=_solparam(a, "solref", _SOLREF_DEFAULT),
+            solimp=_solparam(a, "solimp", _SOLIMP_DEFAULT),
+            condim=int(a.get("condim", "3")),
+            name=a.get("name"))
+        if "fromto" in a:
+            kwargs["fromto"] = tuple(_floats(a["fromto"]))
+        mb.add_geom(body_id, **kwargs)
+
+    def add_joint(body_id, j, cls):
+        a = defaults.resolve("joint", j.get("class", cls), j.attrib)
+        jtype = a.get("type", "hinge")
+        if jtype not in ("slide", "hinge", "free", "ball"):
+            raise NotImplementedError(
+                f"joint type {jtype!r} not supported yet "
+                "(free/ball/slide/hinge only)")
+        scale = to_rad if jtype in ("hinge", "ball") else 1.0
+        rng = None
+        if "range" in a:
+            rng = tuple(_floats(a["range"]) * scale)
+        limited = a.get("limited")
+        limited = None if limited is None else limited == "true"
+        mb.add_joint(
+            body_id, jtype,
+            axis=tuple(_floats(a.get("axis", "0 0 1"))),
+            pos=tuple(_floats(a.get("pos", "0 0 0"))),
+            jnt_range=rng,
+            limited=(rng is not None) if limited is None else limited,
+            damping=float(a.get("damping", "0")),
+            armature=float(a.get("armature", "0")),
+            stiffness=float(a.get("stiffness", "0")),
+            ref=float(a.get("ref", "0")) * scale,
+            solref=_solparam(a, "solreflimit", _SOLREF_DEFAULT),
+            solimp=_solparam(a, "solimplimit", _SOLIMP_DEFAULT),
+            # NOT angle-scaled: MuJoCo compiles jnt margin verbatim even
+            # under <compiler angle="degree"> (probed: range converts,
+            # margin doesn't)
+            margin=float(a.get("margin", "0")),
+            frictionloss=float(a.get("frictionloss", "0")),
+            name=a.get("name"))
+
+    def add_site(body_id, s, cls):
+        a = defaults.resolve("site", s.get("class", cls), s.attrib)
+        mb.add_site(body_id, pos=tuple(_floats(a.get("pos", "0 0 0"))),
+                         quat=tuple(elem_quat(a)), name=a.get("name"))
+
+    mesh_bodies = set()   # bodies whose (visual) mesh geoms were skipped
+
+    def add_inertial(body_id, inr):
+        """Explicit <inertial>: mass + diaginertia (or fullinertia) in
+        the principal frame given by pos/quat."""
+        if "fullinertia" in inr.attrib:
+            fi = _floats(inr.attrib["fullinertia"])  # ixx iyy izz ixy ixz iyz
+            m = np.array([[fi[0], fi[3], fi[4]],
+                          [fi[3], fi[1], fi[5]],
+                          [fi[4], fi[5], fi[2]]])
+            evals, evecs = np.linalg.eigh(m)
+            order = np.argsort(evals)[::-1]
+            evals, evecs = evals[order], evecs[:, order]
+            if np.linalg.det(evecs) < 0:
+                evecs[:, 2] *= -1
+            # rotation -> quat via ModelBuilder's convention: delegate to
+            # diaginertia + quat form
+            w = math.sqrt(max(1.0 + np.trace(evecs), 1e-12)) / 2.0
+            q = np.array([w, (evecs[2, 1] - evecs[1, 2]) / (4 * w),
+                          (evecs[0, 2] - evecs[2, 0]) / (4 * w),
+                          (evecs[1, 0] - evecs[0, 1]) / (4 * w)])
+            diag, quat = evals, q / np.linalg.norm(q)
+        else:
+            diag = _floats(inr.attrib["diaginertia"])
+            quat = elem_quat(inr.attrib)
+        mb.bodies[body_id].inertial = dict(
+            mass=float(inr.attrib["mass"]),
+            pos=tuple(_floats(inr.get("pos", "0 0 0"))),
+            quat=tuple(quat), diaginertia=tuple(diag))
+
+    def walk(elem, parent_id, cls):
+        for child in elem:
+            if child.tag == "body":
+                # mocap bodies (settable fixed frames in MuJoCo) become
+                # plain static bodies: without a host writing mocap_pos
+                # they are world-fixed geometry, which matches how the
+                # Adroit tasks use the vive_tracker anchor
+                body_cls = child.get("childclass", cls)
+                bid = mb.add_body(
+                    parent_id,
+                    pos=tuple(_floats(child.get("pos", "0 0 0"))),
+                    quat=tuple(elem_quat(child.attrib)),
+                    name=child.get("name"))
+                walk(child, bid, body_cls)
+            elif child.tag == "joint":
+                add_joint(parent_id, child, cls)
+            elif child.tag == "geom":
+                add_geom(parent_id, child, cls)
+            elif child.tag == "site":
+                add_site(parent_id, child, cls)
+            elif child.tag == "inertial":
+                add_inertial(parent_id, child)
+            # lights/cameras/textures are rendering-only: skipped
+
+    worldbody = root.find("worldbody")
+    walk(worldbody, 0, "main")
+    for bid in mesh_bodies:
+        if mb.bodies[bid].inertial is None:
+            raise NotImplementedError(
+                "a body with mesh geoms needs an explicit <inertial> — "
+                "mesh mass properties are not computed, so dropping the "
+                "visual mesh would otherwise change the body's mass")
+
+    for tendons in root.findall("tendon"):
+        for t in tendons:
+            if t.tag != "fixed":
+                raise NotImplementedError(
+                    f"tendon type {t.tag!r} not supported yet (fixed "
+                    "tendons only; spatial tendons need wrapping geometry)")
+            a = defaults.resolve("tendon", t.get("class", "main"), t.attrib)
+            joints = [(mb.names["joint"][w.get("joint")],
+                       float(w.get("coef", "1")))
+                      for w in t if w.tag == "joint"]
+            rng = tuple(_floats(a["range"])) if "range" in a else None
+            limited = a.get("limited")
+            sl = a.get("springlength")
+            mb.add_tendon(
+                joints,
+                ten_range=rng,
+                limited=(rng is not None) if limited is None
+                else limited == "true",
+                stiffness=float(a.get("stiffness", "0")),
+                damping=float(a.get("damping", "0")),
+                springlength=tuple(_floats(sl)) if sl is not None else None,
+                solref=_solparam(a, "solreflimit", _SOLREF_DEFAULT),
+                solimp=_solparam(a, "solimplimit", _SOLIMP_DEFAULT),
+                name=a.get("name"))
+
+    for contact in root.findall("contact"):
+        for c in contact:
+            if c.tag == "pair":
+                mb.add_contact_pair(
+                    mb.names["geom"][c.get("geom1")],
+                    mb.names["geom"][c.get("geom2")],
+                    condim=(int(c.get("condim"))
+                            if "condim" in c.attrib else None))
+            elif c.tag == "exclude":
+                mb.add_contact_exclude(
+                    mb.names["body"][c.get("body1")],
+                    mb.names["body"][c.get("body2")])
+            else:
+                raise NotImplementedError(
+                    f"contact element {c.tag!r} not supported "
+                    "(pair/exclude only)")
+
+    for equality in root.findall("equality"):
+        for e in equality:
+            a = e.attrib
+            common = dict(
+                solref=_solparam(a, "solref", _SOLREF_DEFAULT),
+                solimp=_solparam(a, "solimp", _SOLIMP_DEFAULT),
+                active=a.get("active", "true") == "true")
+            if e.tag == "joint":
+                poly = list(_floats(a.get("polycoef", "0 1 0 0 0")))
+                mb.add_equality_joint(
+                    mb.names["joint"][a["joint1"]],
+                    (mb.names["joint"][a["joint2"]]
+                     if "joint2" in a else None),
+                    polycoef=tuple(poly + [0.0] * (5 - len(poly))),
+                    **common)
+            elif e.tag == "connect":
+                mb.add_equality_connect(
+                    mb.names["body"][a["body1"]],
+                    mb.names["body"].get(a.get("body2", "world"), 0),
+                    anchor=tuple(_floats(a.get("anchor", "0 0 0"))),
+                    **common)
+            elif e.tag == "weld":
+                rp = a.get("relpose")
+                mb.add_equality_weld(
+                    mb.names["body"][a["body1"]],
+                    mb.names["body"].get(a.get("body2", "world"), 0),
+                    anchor=tuple(_floats(a.get("anchor", "0 0 0"))),
+                    relpose=(tuple(_floats(rp)) if rp is not None
+                             else None),
+                    torquescale=float(a.get("torquescale", "1")),
+                    **common)
+            else:
+                raise NotImplementedError(
+                    f"equality type {e.tag!r} not supported yet "
+                    "(joint/connect/weld only)")
+
+    for actuators in root.findall("actuator"):
+        for m in actuators:
+            if m.tag not in ("motor", "position", "velocity", "general"):
+                raise NotImplementedError(
+                    f"actuator type {m.tag!r} not supported yet "
+                    "(motor/position/velocity/general)")
+            a = defaults.resolve(m.tag, m.get("class", "main"), m.attrib)
+            # affine gain/bias per actuator shorthand (MuJoCo modeling
+            # chapter: position = kp servo, velocity = kv damper)
+            if m.tag == "position":
+                kp = float(a.get("kp", "1"))
+                kv = float(a.get("kv", "0"))
+                gain, bias = kp, (0.0, -kp, -kv)
+            elif m.tag == "velocity":
+                kv = float(a.get("kv", "1"))
+                gain, bias = kv, (0.0, 0.0, -kv)
+            elif m.tag == "general":
+                gainprm = _floats(a.get("gainprm", "1"))
+                biasprm = list(_floats(a.get("biasprm", "0 0 0"))) + [0.0] * 3
+                gain, bias = float(gainprm[0]), tuple(biasprm[:3])
+            else:
+                gain, bias = 1.0, (0.0, 0.0, 0.0)
+            mb.add_actuator(
+                joint=(mb.names["joint"][a["joint"]]
+                       if "joint" in a else None),
+                tendon=(mb.names["tendon"][a["tendon"]]
+                        if "tendon" in a else None),
+                gear=tuple(_floats(a.get("gear", "1"))),
+                gain=gain, bias=bias,
+                ctrlrange=tuple(_floats(a.get("ctrlrange", "-1 1"))),
+                ctrllimited=a.get("ctrllimited", "false") == "true")
+    return mb

@@ -6,10 +6,11 @@ dataclass of float64 numpy arrays and static topology tuples — computing
 per-body mass, CoM and principal inertia from geoms like MuJoCo's
 ``inertiafromgeom`` compiler path.
 
-Ported so far: slide and hinge joints, plain motors, geoms for inertia.
-Ball/free joints, tendons, equalities and explicit contact pairs belong
-to the general 3D engine (ROADMAP.md M8/M9) and raise
-``NotImplementedError``.
+Ported so far: slide and hinge joints, plain motors, geoms (inertia and
+the dynamic contact pairs with their condim, friction, solref/solimp),
+Euler and RK4, both friction cones.  Ball/free joints, servo actuators,
+tendons, equalities and explicit contact pairs belong to the general 3D
+engine (ROADMAP.md M8/M9) and raise ``NotImplementedError``.
 """
 
 from dataclasses import dataclass, field, replace
@@ -289,6 +290,15 @@ def _solver_id(solver):
             "contacts; aliases 'pgs', 'implicit')") from None
 
 
+def _general_engine_only(item):
+    """A ModelBuilder method that refuses ``item``."""
+    def raiser(self, *args, **kwargs):
+        raise NotImplementedError(
+            f"{item} need the general 3D engine and solver "
+            "(ROADMAP.md M8/M9)")
+    return raiser
+
+
 @dataclass
 class _Body:
     parent: int
@@ -320,7 +330,7 @@ class ModelBuilder:
         self.sites = []
         self.actuators = []
         self.names = {"body": {"world": 0}, "site": {}, "geom": {},
-                      "joint": {}}
+                      "joint": {}, "tendon": {}}
 
     # ---- declaration API -------------------------------------------------
     def add_body(self, parent, pos=(0, 0, 0), quat=(1, 0, 0, 0), name=None,
@@ -406,25 +416,36 @@ class ModelBuilder:
             self.names["site"][name] = sid
         return sid
 
-    def add_actuator(self, joint, gear=1.0, ctrlrange=(-1.0, 1.0),
-                     ctrllimited=True):
-        """Plain motor on a slide/hinge joint.  Servo gains/biases, vector
-        gears and tendon transmissions belong to the general engine
-        (ROADMAP.md M8)."""
+    def add_actuator(self, joint=None, gear=1.0, ctrlrange=(-1.0, 1.0),
+                     ctrllimited=True, gain=1.0, bias=(0.0, 0.0, 0.0),
+                     tendon=None):
+        """Plain motor on a slide/hinge joint (``gear`` a scalar or a
+        vector whose first element counts).  Servo gains/biases, vector
+        gears on ball/free joints and tendon transmissions belong to the
+        general engine (ROADMAP.md M8) and raise."""
+        if tendon is not None or joint is None:
+            raise NotImplementedError(
+                "tendon transmissions need the general 3D engine "
+                "(ROADMAP.md M8)")
+        if float(gain) != 1.0 or np.any(np.asarray(bias, np.float64) != 0.0):
+            raise NotImplementedError(
+                "position/velocity/general actuators (affine gain/bias) "
+                "need the general 3D engine (ROADMAP.md M8)")
+        gear = np.atleast_1d(np.asarray(gear, np.float64))
+        if np.any(gear[1:] != 0.0):
+            raise NotImplementedError(
+                "vector gears need the general 3D engine (ROADMAP.md M8)")
         self.actuators.append(dict(
-            joint=joint, gear=float(gear),
+            joint=joint, gear=float(gear[0]),
             ctrlrange=np.asarray(ctrlrange, np.float64),
             ctrllimited=float(bool(ctrllimited))))
         return len(self.actuators) - 1
 
-    def _general_engine_only(self, *args, **kwargs):
-        raise NotImplementedError(
-            "tendons, equalities and explicit contact pairs need the "
-            "general 3D engine and solver (ROADMAP.md M8/M9)")
-
-    add_contact_pair = add_contact_exclude = add_tendon = \
-        add_equality_joint = add_equality_connect = add_equality_weld = \
-        _general_engine_only
+    add_contact_pair = _general_engine_only("explicit contact pairs")
+    add_contact_exclude = _general_engine_only("contact excludes")
+    add_tendon = _general_engine_only("tendons")
+    add_equality_joint = add_equality_connect = add_equality_weld = \
+        _general_engine_only("equality constraints")
 
     # ---- compilation ------------------------------------------------------
     def _body_inertial(self, body):
@@ -529,8 +550,14 @@ class ModelBuilder:
                 for b in self.bodies:
                     b.geoms = [remap[g] for g in b.geoms]
 
-    def finalize(self, solver="penalty"):
-        """Compile the declarations into a (float64, numpy) ``Model``."""
+    def finalize(self, solver="penalty", dtype=np.float64):
+        """Compile the declarations into a numpy ``Model``.
+
+        ``dtype``: every numeric field is rounded to this precision (and
+        then held as float64), as the JAX package stores a float32 model
+        when an env is built in float32 — its ``timestep`` 0.002 then reads
+        0.0020000000949949026, and the constants baked into the kernels
+        follow."""
         self._sort_by_body()
         nbody = len(self.bodies)
         njnt = len(self.joints)
@@ -553,7 +580,7 @@ class ModelBuilder:
             inertia *= scale
 
         def arr(x, *shape):
-            a = np.asarray(x, np.float64)
+            a = np.asarray(x, np.float64).astype(dtype).astype(np.float64)
             return a.reshape(shape) if shape else a
 
         j = self.joints
@@ -619,25 +646,25 @@ class ModelBuilder:
             dof_qpos_idx=tuple(int(i) for i in dof_qpos_idx),
             body_pos=arr([b.pos for b in self.bodies]),
             body_quat=arr([b.quat for b in self.bodies]),
-            body_ipos=ipos, body_iquat=iquat,
-            body_mass=mass, body_inertia=inertia,
+            body_ipos=arr(ipos), body_iquat=arr(iquat),
+            body_mass=arr(mass), body_inertia=arr(inertia),
             jnt_axis=arr([x["axis"] for x in j], njnt, 3),
             jnt_pos=arr([x["pos"] for x in j], njnt, 3),
             jnt_range=arr([x["range"] for x in j], njnt, 2),
             jnt_limited=arr([x["limited"] for x in j], njnt),
             jnt_stiffness=arr([x["stiffness"] for x in j], njnt),
             jnt_ref=arr([x["ref"] for x in j], njnt),
-            qpos0=qpos0,
-            dof_damping=dof_damping,
-            dof_armature=dof_armature,
-            dof_limited=dof_limited,
-            dof_range=dof_range,
-            dof_margin=dof_margin,
-            dof_frictionloss=dof_frictionloss,
-            dof_solref=dof_solref,
-            dof_solimp=dof_solimp,
-            dof_stiffness=dof_stiffness,
-            dof_ref=dof_ref,
+            qpos0=arr(qpos0),
+            dof_damping=arr(dof_damping),
+            dof_armature=arr(dof_armature),
+            dof_limited=arr(dof_limited),
+            dof_range=arr(dof_range),
+            dof_margin=arr(dof_margin),
+            dof_frictionloss=arr(dof_frictionloss),
+            dof_solref=arr(dof_solref),
+            dof_solimp=arr(dof_solimp),
+            dof_stiffness=arr(dof_stiffness),
+            dof_ref=arr(dof_ref),
             limit_solref=arr([x["solref"] for x in j], njnt, 2),
             limit_solimp=arr([x["solimp"] for x in j], njnt, 5),
             gear=arr([a["gear"] for a in self.actuators], nu),
@@ -658,7 +685,8 @@ class ModelBuilder:
             density=arr(self.opt["density"]),
         )
         dof_iw, body_iw = _invweights(model)
-        return replace(model, dof_invweight0=dof_iw, body_invweight0=body_iw)
+        return replace(model, dof_invweight0=arr(dof_iw),
+                       body_invweight0=arr(body_iw))
 
 
 @dataclass

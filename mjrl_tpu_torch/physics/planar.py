@@ -16,9 +16,10 @@ kernel in ``csrc/planar_body.cuh`` (bound in ``ops/cuda_planar.py``): the
 CPU tests run it, CPU tensors are stepped by it, and the kernel is held
 against it on the GPU.
 
-Ported: the smooth Euler branch (swimmer).  The contact / RK4 branch
-(hopper, walker2d, half-cheetah) raises ``NotImplementedError`` — K2,
-ROADMAP.md queue 2.
+Both branches are ported: the smooth Euler branch (swimmer; plain version
+of ``csrc/planar_body.cuh``) and the contact / RK4 branch (hopper, walker2d,
+half-cheetah; plain version of ``csrc/planar_contact.cuh``), whose dual
+solve runs on stacked tensors.
 """
 
 from typing import NamedTuple, Tuple
@@ -775,16 +776,450 @@ def needs_contact_path(p: PlanarParams) -> bool:
 
 
 # ---------------------------------------------------------------------------
+# contact / RK4 path (hopper / walker2d / half-cheetah-class models with
+# ground contacts).  This is the PLAIN PYTORCH VERSION of the contact kernel
+# (csrc/planar_contact.cuh).  Row assembly and the Cholesky factor stay in
+# component form, shared with the smooth branch; the dual solve runs on
+# stacked (..., C) / (..., C, nv) tensors with explicit sums, as
+# planar_contact_step_n + solver.solve_qacc do in the JAX package.
+# ---------------------------------------------------------------------------
+
+# dual-solve constants (own copy of mjrl_tpu/physics/solver.py:61-63)
+SWEEPS = 50       # APGD iterations for a cold (zero-impulse) solve
+SWEEPS_WARM = 15  # iterations when warm-started from the previous solve
+POWER_ITERS = 8   # power-iteration steps for the Lipschitz estimate
+
+
+def _seg_closest_2d(a0, a1, b0, b1):
+    """Closest points between 2D segments -> (c1 (2,), c2 (2,), dist)."""
+    d1 = (a1[0] - a0[0], a1[1] - a0[1])
+    d2 = (b1[0] - b0[0], b1[1] - b0[1])
+    r = (a0[0] - b0[0], a0[1] - b0[1])
+    a = _dot2(d1, d1) + 1e-12
+    e = _dot2(d2, d2) + 1e-12
+    f = _dot2(d2, r)
+    c = _dot2(d1, r)
+    b = _dot2(d1, d2)
+    denom = a * e - b * b
+    ok = torch.abs(denom) > 1e-12
+    s = torch.where(
+        ok,
+        torch.clamp((b * f - c * e)
+                    / torch.where(ok, denom, torch.ones_like(denom)),
+                    0.0, 1.0),
+        torch.zeros_like(denom))
+    t = torch.clamp((b * s + f) / e, 0.0, 1.0)
+    s = torch.clamp((b * t - c) / a, 0.0, 1.0)
+    c1 = (a0[0] + d1[0] * s, a0[1] + d1[1] * s)
+    c2 = (b0[0] + d2[0] * t, b0[1] + d2[1] * t)
+    d = (c2[0] - c1[0], c2[1] - c1[1])
+    dist = torch.sqrt(_dot2(d, d) + 1e-18)
+    return c1, c2, dist
+
+
+def capsule_axis_distance(p: PlanarParams, qpos):
+    """Smallest distance between the axes of any capsule-capsule pair of
+    ``p`` at the poses qpos (..., nv) -> (...,) tensor (inf without such
+    pairs).  Where two axes cross, the contact normal (c2 - c1) / |c2 - c1|
+    is 0 / 0 and rounding alone turns it: comparisons between two
+    implementations of the step keep their states away from such poses."""
+    phi, org, _, _, _ = _planar_ctx(p, [qpos[..., d] for d in range(p.nv)])
+    best = torch.full_like(qpos[..., 0], float("inf"))
+
+    def world(b, pt):
+        c, s = torch.cos(phi[b]), torch.sin(phi[b])
+        return (org[b][0] + c * pt[0] - s * pt[1],
+                org[b][1] + s * pt[0] + c * pt[1])
+    for c in p.contacts_cc:
+        best = torch.minimum(best, _seg_closest_2d(
+            world(c[0], c[1]), world(c[0], c[2]),
+            world(c[4], c[5]), world(c[4], c[6]))[2])
+    return best
+
+
+def _constraint_rows_comp(p: PlanarParams, ctx, q, v):
+    """Component-form constraint rows for the contact path ->
+    (rows [C][nv], aref_pos [C], b_row [C], active [C], R [C], zero) —
+    ``zero`` is the literal zero tensor used for off-chain Jacobian
+    entries (``row[d] is zero`` marks a structural zero).
+
+    One signed row per limited scalar dof, then per contact either one
+    frictionless normal row (condim 1) or 4 pyramidal facet rows (the
+    out-of-plane tangent pair degenerates to two duplicate normal rows,
+    kept for parity with the 3D path's regularization); elliptic triples
+    are flushed last in block order [n(K), t1(K), t2(K)]."""
+    phi, org, sdofs, coms, chain = ctx
+    nv = p.nv
+    zero = torch.zeros_like(q[0])
+    one = torch.ones_like(q[0])
+    rows, arefs, brows, actives, regs = [], [], [], [], []
+
+    # scalar-dof limits (signed identity rows); unlimited dofs are
+    # statically dropped
+    for d in range(nv):
+        if not p.limited[d]:
+            continue
+        below = torch.clamp(p.lo[d] - q[d], min=0.0)
+        above = torch.clamp(q[d] - p.hi[d], min=0.0)
+        use_lower = below >= above
+        sg = torch.where(use_lower, one, -one)
+        dist = torch.where(use_lower, q[d] - p.lo[d], p.hi[d] - q[d])
+        act = p.limited[d] * ((below > 0) | (above > 0)).to(q[d].dtype)
+        imp = _impedance_scalar(p.solimp[d], torch.clamp(-dist, min=0.0))
+        rows.append([sg * one if e == d else zero for e in range(nv)])
+        arefs.append(-p.limit_k[d] * imp * dist)
+        brows.append(p.limit_b[d] * one)
+        actives.append(act)
+        regs.append(torch.clamp((1.0 - imp) / imp * p.invweight0[d],
+                                min=1e-12))
+
+    def point_vel_rows(b, pc, direction):
+        """J over dofs: chain-masked velocity of material point pc on
+        body b along ``direction``."""
+        out = []
+        for d in range(nv):
+            if chain[b][d]:
+                w_d, u_d = sdofs[d]
+                vp = (u_d[0] - w_d * pc[1], u_d[1] + w_d * pc[0])
+                out.append(_dot2(vp, direction))
+            else:
+                out.append(zero)
+        return out
+
+    ell = []   # elliptic triples: (jn, jt, aref_n, brow, act, reg_e)
+
+    def add_contact(jn, jt, depth, kc, bc, si, mu, iw, cd=3):
+        imp = _impedance_scalar(si, torch.clamp(depth, min=0.0))
+        act = (depth > 0).to(q[0].dtype)
+        aref = kc * imp * depth
+        brow = bc * one
+        if cd == 1:
+            # frictionless: ONE normal row, R from the raw invweight sum
+            rows.append(jn)
+            arefs.append(aref)
+            brows.append(brow)
+            actives.append(act)
+            regs.append(torch.clamp((1.0 - imp) / imp * iw, min=1e-12))
+            return
+        if p.cone == ELLIPTIC_CONE:
+            reg_e = torch.clamp((1.0 - imp) / imp * iw, min=1e-12)
+            ell.append((jn, jt, aref, brow, act, reg_e))
+            return
+        reg = torch.clamp((1.0 - imp) / imp
+                          * (iw * 2.0 * mu * mu * (1.0 + mu * mu)),
+                          min=1e-12)
+        for jrow in (jn, jn,
+                     [jn[d] + mu * jt[d] for d in range(nv)],
+                     [jn[d] - mu * jt[d] for d in range(nv)]):
+            rows.append(jrow)
+            arefs.append(aref)
+            brows.append(brow)
+            actives.append(act)
+            regs.append(reg)
+
+    for (b, (lx, ly), r, up, h0, kc, bc, si, mu, iw, cd) in p.contacts_pt:
+        c, s = torch.cos(phi[b]), torch.sin(phi[b])
+        px = org[b][0] + c * lx - s * ly
+        py = org[b][1] + s * lx + c * ly
+        d_up = up[0] * px + up[1] * py - h0     # center above plane
+        depth = r - d_up
+        # contact point midway between the surfaces (MuJoCo convention)
+        pc = (px - up[0] * 0.5 * (d_up + r), py - up[1] * 0.5 * (d_up + r))
+        tng = _perp(up)
+        jn = point_vel_rows(b, pc, up)
+        jt = point_vel_rows(b, pc, tng)
+        add_contact(jn, jt, depth, kc, bc, si, mu, iw, cd)
+
+    for (bA, pA0, pA1, rA, bB, pB0, pB1, rB,
+         kc, bc, si, mu, iw, cd) in p.contacts_cc:
+        def world(bb, pt):
+            c, s = torch.cos(phi[bb]), torch.sin(phi[bb])
+            return (org[bb][0] + c * pt[0] - s * pt[1],
+                    org[bb][1] + s * pt[0] + c * pt[1])
+        c1, c2, dist = _seg_closest_2d(world(bA, pA0), world(bA, pA1),
+                                       world(bB, pB0), world(bB, pB1))
+        n2 = ((c2[0] - c1[0]) / dist, (c2[1] - c1[1]) / dist)
+        depth = (rA + rB) - dist
+        pc = (0.5 * (c1[0] + n2[0] * rA + c2[0] - n2[0] * rB),
+              0.5 * (c1[1] + n2[1] * rA + c2[1] - n2[1] * rB))
+        tng = _perp(n2)
+        jnB = point_vel_rows(bB, pc, n2)
+        jnA = point_vel_rows(bA, pc, n2)
+        jn = [jnB[d] - jnA[d] for d in range(nv)]
+        jtB = point_vel_rows(bB, pc, tng)
+        jtA = point_vel_rows(bA, pc, tng)
+        jt = [jtB[d] - jtA[d] for d in range(nv)]
+        add_contact(jn, jt, depth, kc, bc, si, mu, iw, cd)
+
+    if ell:
+        # t2 (the out-of-plane tangent) has an identically-zero Jacobian in
+        # planar motion but is kept so the triple's shared tangent
+        # preconditioner scale sqrt(ds_t1 * ds_t2) matches the 3D engine's
+        zrow = [zero] * nv
+        for jn, _jt, aref, brow, act, reg_e in ell:
+            rows.append(jn); arefs.append(aref); brows.append(brow)
+            actives.append(act); regs.append(reg_e)
+        for _jn, jt, _aref, brow, act, reg_e in ell:
+            rows.append(jt); arefs.append(zero); brows.append(brow)
+            actives.append(act); regs.append(reg_e)
+        for _jn, _jt, _aref, brow, act, reg_e in ell:
+            rows.append(zrow); arefs.append(zero); brows.append(brow)
+            actives.append(act); regs.append(reg_e)
+
+    return rows, arefs, brows, actives, regs, zero
+
+
+def _constraint_rows(p: PlanarParams, ctx, q, v):
+    """Stacked view of _constraint_rows_comp -> (J (..., C, nv),
+    aref_pos (..., C), b_row (..., C), active (..., C), R (..., C))."""
+    rows, arefs, brows, actives, regs, _ = \
+        _constraint_rows_comp(p, ctx, q, v)
+    J = torch.stack([torch.stack(rw, dim=-1) for rw in rows], dim=-2)
+    st = lambda xs: torch.stack(xs, dim=-1)
+    return J, st(arefs), st(brows), st(actives), st(regs)
+
+
+def n_planar_rows(p: PlanarParams):
+    n_lim = sum(1 for d in range(p.nv) if p.limited[d])
+    per = 3 if p.cone == ELLIPTIC_CONE else 4
+    cds = [c[10] for c in p.contacts_pt] + [c[13] for c in p.contacts_cc]
+    return n_lim + sum(1 if cd == 1 else per for cd in cds)
+
+
+def _planar_soc(p: PlanarParams):
+    """(st, K, mu tuple) of the elliptic triple block, or None.
+    Frictionless (condim 1) contacts emit single inline rows BEFORE the
+    flushed triple block, so they shift st and leave K."""
+    if p.cone != ELLIPTIC_CONE:
+        return None
+    fr_pt = [c for c in p.contacts_pt if c[10] != 1]
+    fr_cc = [c for c in p.contacts_cc if c[13] != 1]
+    K = len(fr_pt) + len(fr_cc)
+    if not K:
+        return None
+    n_cd1 = (len(p.contacts_pt) - len(fr_pt)
+             + len(p.contacts_cc) - len(fr_cc))
+    st = sum(1 for d in range(p.nv) if p.limited[d]) + n_cd1
+    mus = tuple(float(c[8]) for c in fr_pt) \
+        + tuple(float(c[11]) for c in fr_cc)
+    return st, K, mus
+
+
+def _chol_factor_comp(m, nv):
+    """Unrolled Cholesky of the upper-triangle dict from _planar_smooth
+    -> low[i][j] components (pivot floor 1e-10 |m_ii| + 1e-30)."""
+    low = [[None] * nv for _ in range(nv)]
+    for i in range(nv):
+        for jj in range(i + 1):
+            s = m[(jj, i)]
+            for k in range(jj):
+                s = s - low[i][k] * low[jj][k]
+            if i == jj:
+                floor = 1e-10 * torch.abs(m[(i, i)]) + 1e-30
+                low[i][jj] = torch.sqrt(torch.maximum(s, floor))
+            else:
+                low[i][jj] = s / low[jj][jj]
+    return low
+
+
+def _chol_solve_comp(low, b):
+    n = len(b)
+    y = [None] * n
+    for i in range(n):
+        s = b[i]
+        for k in range(i):
+            s = s - low[i][k] * y[k]
+        y[i] = s / low[i][i]
+    x = [None] * n
+    for i in reversed(range(n)):
+        s = y[i]
+        for k in range(i + 1, n):
+            s = s - low[k][i] * x[k]
+        x[i] = s / low[i][i]
+    return x
+
+
+def _m_matvec_comp(m, x, nv):
+    out = []
+    for d in range(nv):
+        s = None
+        for e in range(nv):
+            t = m[(min(d, e), max(d, e))] * x[e]
+            s = t if s is None else s + t
+        out.append(s)
+    return out
+
+
+def _solve_qacc(low, a0, J, aref, active, reg, lam0, sweeps, soc=None):
+    """Diagonally preconditioned APGD solve of the regularized dual
+    min_lam 1/2 lam^T (A + R) lam - lam^T (aref - J a0) over the feasible
+    set, A = J M^-1 J^T never materialized -> (qacc (..., nv),
+    lam (..., C)).  Step 1/L with L from ``POWER_ITERS`` power iterations,
+    Nesterov momentum with adaptive (gradient-test) restart, a fixed number
+    of sweeps.
+
+    ``low``: component Cholesky factor of M; a0 (..., nv); J (..., C, nv);
+    the rest (..., C).  ``soc=(st, K, mus)``: elliptic contact triples
+    [n(K), t1(K), t2(K)] starting at row st: the tangent pair shares one
+    preconditioner scale sqrt(ds_t1 * ds_t2), the cone opening becomes
+    mu' = mu * ds_t / ds_n, and the projection is the closed-form
+    second-order-cone projection instead of the nonnegative clamp."""
+    C, nv = J.shape[-2], J.shape[-1]
+    lowb = [[None if x is None else x.unsqueeze(-1) for x in row]
+            for row in low]
+    minv_jt = torch.stack(
+        _chol_solve_comp(lowb, [J[..., d] for d in range(nv)]), dim=-1)
+    diag = torch.sum(J * minv_jt, dim=-1)
+    ds = torch.sqrt(torch.clamp(diag + reg, min=1e-12))
+    if soc is not None:
+        st, K, mus = soc
+        ds_n = ds[..., st:st + K]
+        ds_t = torch.sqrt(ds[..., st + K:st + 2 * K]
+                          * ds[..., st + 2 * K:st + 3 * K])
+        ds = torch.cat([ds[..., :st + K], ds_t, ds_t,
+                        ds[..., st + 3 * K:]], dim=-1)
+        mu_g = torch.tensor(mus, dtype=ds.dtype, device=ds.device) \
+            * ds_t / ds_n
+
+    def op(x):     # preconditioned operator D^-1/2 (A + R) D^-1/2
+        u = x / ds
+        w = torch.sum(minv_jt * u.unsqueeze(-1), dim=-2)
+        return (torch.sum(J * w.unsqueeze(-2), dim=-1) + reg * u) / ds
+
+    def norm(x):
+        return torch.clamp(torch.sqrt(torch.sum(x * x, dim=-1)), min=1e-12)
+
+    x = active / norm(active).unsqueeze(-1)
+    lmax = torch.ones_like(ds[..., 0])
+    for _ in range(POWER_ITERS):
+        w = op(x)
+        lmax = norm(w)
+        x = w / lmax.unsqueeze(-1)
+    el = torch.clamp(1.1 * lmax, min=1e-8).unsqueeze(-1)
+
+    rhs = (aref - torch.sum(J * a0.unsqueeze(-2), dim=-1)) / ds
+    mu0 = lam0 * active * ds
+
+    def project(z):
+        """Nonnegative clamp, except elliptic triples, which go through
+        the closed-form SOC projection (a negative normal iterate can
+        still project to a nonzero impulse)."""
+        if soc is None:
+            return torch.clamp(z, min=0.0) * active
+        n_i = z[..., st:st + K]
+        t1_i = z[..., st + K:st + 2 * K]
+        t2_i = z[..., st + 2 * K:st + 3 * K]
+        s = torch.sqrt(t1_i * t1_i + t2_i * t2_i)
+        inside = s <= mu_g * n_i
+        below = mu_g * s <= -n_i
+        c = (mu_g * s + n_i) / (1.0 + mu_g * mu_g)
+        zeros, ones = torch.zeros_like(c), torch.ones_like(c)
+        n_p = torch.where(inside, n_i, torch.where(below, zeros, c))
+        tsc = torch.where(inside, ones, torch.where(
+            below, zeros, mu_g * c / torch.clamp(s, min=1e-30)))
+        z = torch.cat([torch.clamp(z[..., :st], min=0.0), n_p, t1_i * tsc,
+                       t2_i * tsc,
+                       torch.clamp(z[..., st + 3 * K:], min=0.0)], dim=-1)
+        return z * active
+
+    mu, y = mu0, mu0
+    t = torch.ones_like(lmax)
+    for _ in range(sweeps):
+        g = op(y) - rhs
+        mu_new = project(y - g / el)
+        # adaptive restart (gradient test): kill momentum when the
+        # momentum direction opposes descent
+        restart = torch.sum((y - mu_new) * (mu_new - mu), dim=-1) > 0
+        t = torch.where(restart, torch.ones_like(t), t)
+        t_new = 0.5 * (1.0 + torch.sqrt(1.0 + 4.0 * t * t))
+        mom = torch.where(restart, torch.zeros_like(t), (t - 1.0) / t_new)
+        y = mu_new + mom.unsqueeze(-1) * (mu_new - mu)
+        mu, t = mu_new, t_new
+    lam = mu / ds
+    return a0 + torch.sum(minv_jt * lam.unsqueeze(-1), dim=-2), lam
+
+
+def _contact_qacc(p: PlanarParams, qpos, qvel, ctrl, lam0, sweeps):
+    """Constrained acceleration -> (qacc (..., nv), a0 (..., nv),
+    lam (..., C), m (upper-triangle dict of components), qfrc (..., nv))."""
+    nv = p.nv
+    q = [qpos[..., d] for d in range(nv)]
+    v = [qvel[..., d] for d in range(nv)]
+    u = [ctrl[..., i] for i in range(len(p.actuators))]
+    m, qfrc, ctx = _planar_smooth(p, q, v, u)
+    zero = torch.zeros_like(q[0])
+    # structurally constant slots of M are python floats
+    m = {k: (x if torch.is_tensor(x) else zero + x) for k, x in m.items()}
+    low = _chol_factor_comp(m, nv)
+    a0 = torch.stack(_chol_solve_comp(low, qfrc), dim=-1)
+    J, aref_pos, brow, active, reg = _constraint_rows(p, ctx, q, v)
+    aref = aref_pos - brow * torch.sum(J * qvel.unsqueeze(-2), dim=-1)
+    qacc, lam = _solve_qacc(low, a0, J, aref, active, reg, lam0, sweeps,
+                            soc=_planar_soc(p))
+    return qacc, a0, lam, m, torch.stack(qfrc, dim=-1)
+
+
+def planar_contact_step_n(p: PlanarParams, qpos, qvel, ctrl, n: int):
+    """One control step (``n`` substeps) for contact/RK4 planar models on
+    (..., nv)/(..., nu) tensors.  Implicit-solver semantics: Euler
+    integrates smooth + constraint force with M + h diag(B); RK4 uses the
+    constrained qacc directly, rebuilding the rows at every stage;
+    impulses warm-start across substeps and stages (``SWEEPS`` for the
+    first solve of the step, ``SWEEPS_WARM`` after)."""
+    h = p.timestep
+    nv = p.nv
+    lam = torch.zeros(qpos.shape[:-1] + (n_planar_rows(p),),
+                      dtype=qpos.dtype, device=qpos.device)
+    sweeps = SWEEPS
+
+    if p.integrator == EULER:
+        for _ in range(n):
+            qacc_c, a0, lam, m, qf = _contact_qacc(p, qpos, qvel, ctrl, lam,
+                                                   sweeps)
+            sweeps = SWEEPS_WARM
+            dqa = qacc_c - a0
+            qfrc_con = _m_matvec_comp(m, [dqa[..., d] for d in range(nv)],
+                                      nv)
+            md = dict(m)
+            for d in range(nv):
+                md[(d, d)] = md[(d, d)] + h * p.damping[d]
+            low2 = _chol_factor_comp(md, nv)
+            qacc = torch.stack(_chol_solve_comp(
+                low2, [qf[..., d] + qfrc_con[d] for d in range(nv)]), dim=-1)
+            qvel = qvel + h * qacc
+            qpos = qpos + h * qvel
+        return qpos, qvel
+
+    for _ in range(n):
+        k1v, _, lam, _, _ = _contact_qacc(p, qpos, qvel, ctrl, lam, sweeps)
+        sweeps = SWEEPS_WARM
+        k1p = qvel
+        k2p = qvel + 0.5 * h * k1v
+        k2v, _, lam, _, _ = _contact_qacc(p, qpos + 0.5 * h * k1p, k2p, ctrl,
+                                          lam, sweeps)
+        k3p = qvel + 0.5 * h * k2v
+        k3v, _, lam, _, _ = _contact_qacc(p, qpos + 0.5 * h * k2p, k3p, ctrl,
+                                          lam, sweeps)
+        k4p = qvel + h * k3v
+        k4v, _, lam, _, _ = _contact_qacc(p, qpos + h * k3p, k4p, ctrl, lam,
+                                          sweeps)
+        qpos = qpos + h * (k1p + 2 * k2p + 2 * k3p + k4p) / 6.0
+        qvel = qvel + h * (k1v + 2 * k2v + 2 * k3v + k4v) / 6.0
+    return qpos, qvel
+
+
+# ---------------------------------------------------------------------------
 # array-facing wrapper ((..., nv) tensors, batch leading)
 # ---------------------------------------------------------------------------
 
 def step_n_arrays(p: PlanarParams, qpos, qvel, ctrl, n: int):
     """(..., nv), (..., nv), (..., nu) tensors -> stepped (..., nv) x2.
 
-    Smooth Euler chains (swimmer) take the component path, one tensor per
-    coordinate.  Contact-bearing or RK4 models are not ported yet."""
+    Contact-bearing or RK4 models take the stacked dual path; smooth Euler
+    chains (swimmer) take the pure component path, one tensor per
+    coordinate."""
     if needs_contact_path(p):
-        raise NotImplementedError("K2, ROADMAP queue 2")
+        return planar_contact_step_n(p, qpos, qvel, ctrl, n)
     q = [qpos[..., d] for d in range(p.nv)]
     v = [qvel[..., d] for d in range(p.nv)]
     u = [ctrl[..., i] for i in range(len(p.actuators))]

@@ -1,9 +1,11 @@
 """Where the time of the main path goes on the GPU.
 
-    python -m mjrl_tpu_torch.utils.profile_main_path [--out DIR]
+    python -m mjrl_tpu_torch.utils.profile_main_path [--env ID] [--out DIR]
 
-Runs the swimmer NPG iteration at the size users train at (4096 environments
-x 500 control steps, a 64-64 policy) and prints one JSON object per line:
+Runs the NPG iteration of ``--env`` (default ``mjrl_swimmer-v0``; also
+``Hopper-v3``, ``Walker2d-v3``, ``HalfCheetah-v3``) at the size users train
+at (4096 environments x the env's own horizon, a 64-64 policy) and prints
+one JSON object per line:
 
 - ``rollout``: wall seconds of a rollout, the device time summed by kernel
   name from ``torch.profiler`` over a window of control steps, and the share
@@ -32,7 +34,9 @@ from mjrl_tpu_torch.envs import GymEnv
 from mjrl_tpu_torch.models.policies import MLP
 from mjrl_tpu_torch.samplers.rollout import rollout_batch
 
-NUM_ENVS, HORIZON, WINDOW = 4096, 500, 50
+NUM_ENVS, WINDOW = 4096, 50
+# NPG step size per env (the examples' values)
+STEP_SIZE = {"mjrl_swimmer-v0": 0.1}
 
 
 def _timed(fn):
@@ -48,6 +52,7 @@ def profile_rollout(env, policy):
     roll = lambda T: rollout_batch(env, policy.config, policy.params,
                                    policy.transforms, gen, NUM_ENVS,
                                    horizon=T)
+    HORIZON = env.horizon
     roll(WINDOW)                                   # builds the kernel, warms
     _, seconds = _timed(lambda: roll(HORIZON))
     with profile(activities=[ProfilerActivity.CPU,
@@ -69,15 +74,18 @@ def profile_rollout(env, policy):
                             for n, ms, c in rows[:12]]}, prof
 
 
-def profile_iterations(niter=3):
-    e = GymEnv("mjrl_swimmer-v0")
+def profile_iterations(env_id, niter=3):
+    e = GymEnv(env_id)
     policy = MLP(e.spec, hidden_sizes=(64, 64))
-    agent = NPG(e, policy, LinearBaseline(e.spec), normalized_step_size=0.1,
+    agent = NPG(e, policy, LinearBaseline(e.spec),
+                normalized_step_size=STEP_SIZE.get(env_id, 0.05),
                 save_logs=True)
+    torch.cuda.reset_peak_memory_stats()
     for _ in range(niter):
         agent.train_step(NUM_ENVS, gamma=0.995, gae_lambda=0.97)
     log = agent.logger.log
-    return {"phase": "iteration", "iterations": niter,
+    return {"phase": "iteration", "env": env_id, "iterations": niter,
+            "num_samples": log["num_samples"],
             "time_sampling": log["time_sampling"],
             "time_npg": log["time_npg"], "time_VF": log["time_VF"],
             "peak_device_memory_bytes": torch.cuda.max_memory_allocated()}
@@ -85,6 +93,8 @@ def profile_iterations(niter=3):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--env", default="mjrl_swimmer-v0",
+                    help="registered env id (default: the swimmer)")
     ap.add_argument("--out", default=None,
                     help="directory for the chrome trace of the window")
     args = ap.parse_args(argv)
@@ -95,15 +105,16 @@ def main(argv=None):
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
     print(json.dumps({"card": card}), flush=True)
-    e = GymEnv("mjrl_swimmer-v0")
+    e = GymEnv(args.env)
     policy = MLP(e.spec, hidden_sizes=(64, 64))
     result, prof = profile_rollout(e.env, policy)
+    result["env"] = args.env
     print(json.dumps(result), flush=True)
     if args.out:
         os.makedirs(args.out, exist_ok=True)
         prof.export_chrome_trace(os.path.join(args.out,
                                               "rollout_window.json"))
-    print(json.dumps(profile_iterations()), flush=True)
+    print(json.dumps(profile_iterations(args.env)), flush=True)
 
 
 if __name__ == "__main__":

@@ -145,7 +145,9 @@ def test_geom_mass_inertia_matches_jax():
 
 
 def test_registry():
-    assert torch_envs.registered_ids() == ["mjrl_swimmer-v0"]
+    assert torch_envs.registered_ids() == [
+        "HalfCheetah-v3", "HalfCheetah-v4", "Hopper-v3", "Hopper-v4",
+        "Walker2d-v3", "Walker2d-v4", "mjrl_swimmer-v0"]
     with pytest.raises(KeyError, match="unknown env id"):
         torch_envs.make("mjrl_hopper-v0")
     env = torch_envs.make("mjrl_swimmer-v0", device="cpu")

@@ -86,11 +86,11 @@ def test_wrapper_takes_plain_version_for_cpu_tensors(params):
     and counts no kernel launch."""
     _, pt = params
     q, v, u = (torch.tensor(a) for a in random_states(8))
-    before = cuda_planar.launch_count
+    before = dict(cuda_planar.launch_counts)
     gq, gv = cuda_planar.cuda_step_n_batched(pt, q, v, u, 5)
     rq, rv = tplanar.step_n_arrays(pt, q, v, u, 5)
     assert torch.equal(gq, rq) and torch.equal(gv, rv)
-    assert cuda_planar.launch_count == before
+    assert cuda_planar.launch_counts == before
 
 
 def test_float32_plain_version_close_to_float64(params):
@@ -108,12 +108,24 @@ def test_float32_plain_version_close_to_float64(params):
 
 
 def test_contact_and_rk4_models_not_ported(params):
+    """(The name dates from when they were not.)  A model with RK4 or
+    contacts now takes the contact branch: its own kernel, its own plain
+    version, and a header with the contact tables.  The swimmer under RK4
+    and a small step stays close to the swimmer under Euler."""
     _, pt = params
+    rk4 = pt._replace(integrator=RK4, timestep=1e-5)
+    assert cuda_planar.kernel_name(pt) == "planar_step_smooth"
+    assert cuda_planar.kernel_name(rk4) == "planar_step_contact"
+    h = cuda_planar.emit_model_header(rk4)
+    assert "RK4 = true" in h and "CONTACT_PATH = true" in h
+    assert "NROWS = 4" in h and "SWEEPS = 50, SWEEPS_WARM = 15" in h
     q, v, u = (torch.tensor(a) for a in random_states(2))
-    with pytest.raises(NotImplementedError, match="K2"):
-        tplanar.step_n_arrays(pt._replace(integrator=RK4), q, v, u, 1)
-    with pytest.raises(NotImplementedError, match="K2"):
-        cuda_planar.emit_model_header(pt._replace(integrator=RK4))
+    q4, v4 = tplanar.step_n_arrays(rk4, q, v, u, 1)
+    q1, v1 = tplanar.step_n_arrays(pt._replace(timestep=1e-5), q, v, u, 1)
+    assert torch.isfinite(q4).all() and (q4 - q).abs().max() > 5e-6
+    assert (v4 - v).abs().max() > 1e-4
+    np.testing.assert_allclose(q4.numpy(), q1.numpy(), rtol=0, atol=1e-7)
+    np.testing.assert_allclose(v4.numpy(), v1.numpy(), rtol=0, atol=1e-5)
 
 
 def test_kernel_needs_nvcc_and_says_so(params, monkeypatch):
@@ -135,6 +147,7 @@ def test_model_header_bakes_the_model_in(params):
     assert "NV = 7, NB = 5, NU = 4, NL = 4" in h
     assert "PGS_SWEEPS = 12" in h and "H = 0.005" in h
     assert "HAS_FLUID = true" in h and "HAS_DAMPING = false" in h
+    assert "CONTACT_PATH = false" in h and "NPT = 0, NCC = 0" in h
     assert repr(float(pt.invweight0[3])) in h
     other = cuda_planar.emit_model_header(pt._replace(timestep=0.004))
     assert other != h
