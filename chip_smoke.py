@@ -9,12 +9,16 @@ non-zero with the phase's name:
 1. device   refuses to run without CUDA; prints the card's name and power
             limit as nvidia-smi gives them.
 2. build    builds every kernel from mjrl_tpu_torch/csrc with nvcc, one
-            process per model, all started together: the smooth kernel for
-            the swimmer, the contact / RK4 kernel for Hopper, Walker2d and
-            HalfCheetah; prints seconds, registers, stack frame and spills.
+            process per library, all started together: the smooth kernel
+            for the swimmer, the contact / RK4 kernel for Hopper, Walker2d
+            and HalfCheetah at every lane-group size L (1, 8, 16, 32 lanes
+            per environment); prints seconds, registers, stack frame and
+            spills.
 3. kernels  each kernel against its plain PyTorch version ON THE CARD, same
             numpy-seeded inputs, at the shapes the main path gives it, with
-            its time, the plain version's time and its roofline bound.
+            its time, the plain version's time and its roofline bound; the
+            contact kernel at every L, timed in turns (L = 1, the others,
+            the others again, L = 1) on one card.
 4. rollout  SwimmerEnv, 4096 environments x 500 steps, 64-64 policy,
             stochastic: every leaf finite, one kernel launch per step.
 5. train    the Swimmer main path through the entry points a user calls:
@@ -260,18 +264,26 @@ def phase_device():
 
 
 def phase_build(models):
-    """models: name -> PlanarParams.  One nvcc per model, started together."""
+    """models: name -> PlanarParams.  One nvcc per library (per model, and
+    per lane-group size for the contact kernel), started together ->
+    {model: {lanes: ptxas figures}} of the contact models."""
+    items = [(name, p, L) for name, p in models.items()
+             for L in (cuda_planar.LANES
+                       if cuda_planar.kernel_name(p) == CONTACT else (None,))]
     t0 = time.time()
-    infos = cuda_planar.build_kernels(models.values())
-    emit({"phase": "build", "seconds": time.time() - t0,
-          "models": {name: {"kernel": cuda_planar.kernel_name(p),
-                            "source": cuda_planar.kernel_source(
-                                cuda_planar.kernel_name(p)),
-                            "nvcc_seconds": info["build_seconds"],
-                            "ptxas": info["ptxas"]}
-                     for (name, p), (_, info) in zip(models.items(), infos)},
+    infos = cuda_planar.build_kernels([(p, L) for _, p, L in items])
+    built = {}
+    for (name, p, L), (_, info) in zip(items, infos):
+        built.setdefault(name, {
+            "kernel": cuda_planar.kernel_name(p),
+            "source": cuda_planar.kernel_source(cuda_planar.kernel_name(p)),
+            "builds": {}})["builds"][str(L or 1)] = {
+                "nvcc_seconds": info["build_seconds"], "ptxas": info["ptxas"]}
+    emit({"phase": "build", "seconds": time.time() - t0, "models": built,
           "headers": ["mjrl_tpu_torch/csrc/planar_body.cuh",
                       "mjrl_tpu_torch/csrc/planar_contact.cuh"]})
+    return {name: {L: b["ptxas"] for L, b in m["builds"].items()}
+            for name, m in built.items() if m["kernel"] == CONTACT}
 
 
 def phase_kernels(p, smi):
@@ -333,27 +345,47 @@ def phase_kernels(p, smi):
 
 
 def check_contact_kernel(p, q, v, u, n, dtype):
-    """One launch of the contact kernel against the plain version on the
-    card -> (max abs error q, max abs error v)."""
+    """Every lane-group size of the contact kernel against one run of the
+    plain version on the card -> {lanes: (max abs error q, v)}."""
     dev = torch.device("cuda")
     tq, tv, tu = (torch.tensor(a, dtype=dtype, device=dev)
                   for a in (q, v, u))
-    gq, gv = cuda_planar.cuda_step_n_batched(p, tq, tv, tu, n)
-    torch.cuda.synchronize()
     rq, rv = step_n_arrays(p, tq, tv, tu, n)
-    if not (torch.isfinite(gq).all() and torch.isfinite(gv).all()):
-        raise AssertionError("contact kernel output not finite")
     tol_q, tol_v = CONTACT_TOL[dtype]
-    torch.testing.assert_close(gq, rq, rtol=tol_q, atol=tol_q)
-    torch.testing.assert_close(
-        gv, rv, rtol=tol_v, atol=tol_v * max(1.0, rv.abs().max().item()))
-    return (gq - rq).abs().max().item(), (gv - rv).abs().max().item()
+    errs = {}
+    for L in cuda_planar.LANES:
+        gq, gv = cuda_planar.cuda_step_n_batched(p, tq, tv, tu, n, lanes=L)
+        torch.cuda.synchronize()
+        if not (torch.isfinite(gq).all() and torch.isfinite(gv).all()):
+            raise AssertionError(f"contact kernel, {L} lanes: output not "
+                                 "finite")
+        torch.testing.assert_close(gq, rq, rtol=tol_q, atol=tol_q,
+                                   msg=lambda m: f"{L} lanes, q: {m}")
+        torch.testing.assert_close(
+            gv, rv, rtol=tol_v, atol=tol_v * max(1.0, rv.abs().max().item()),
+            msg=lambda m: f"{L} lanes, v: {m}")
+        errs[L] = ((gq - rq).abs().max().item(),
+                   (gv - rv).abs().max().item())
+    return errs
 
 
-def phase_kernels_contact(envs, smi):
-    """envs: name -> env (Hopper, Walker2d, HalfCheetah)."""
+def time_lanes(p, tq, tv, tu, n, reps):
+    """Milliseconds per launch of every lane-group size on the same inputs,
+    in turns (L = 1, the others, the others again, L = 1) -> {lanes: mean
+    of its two readings}."""
+    rest = list(cuda_planar.LANES[1:])
+    readings = {L: [] for L in cuda_planar.LANES}
+    for L in [1] + rest + rest[::-1] + [1]:
+        readings[L].append(time_ms(lambda: cuda_planar.cuda_step_n_batched(
+            p, tq, tv, tu, n, lanes=L), reps))
+    return {L: sum(r) / len(r) for L, r in readings.items()}
+
+
+def phase_kernels_contact(envs, smi, ptxas):
+    """envs: name -> env (Hopper, Walker2d, HalfCheetah); ptxas: the build
+    phase's figures by model and lanes."""
     dev = torch.device("cuda")
-    checks, worst, times = [], 0.0, {}
+    checks, worst, times, times64 = [], 0.0, {}, {}
     for name, env in envs.items():
         p, n = env._planar, env.frame_skip
         sets = [(f"B{B}", contact_test_states(p, env.model.qpos0, B, seed=B))
@@ -362,29 +394,34 @@ def phase_kernels_contact(envs, smi):
             sets.append(("explosion", cheetah_explosion_states()))
         for label, (q, v, u) in sets:
             for dtype in (torch.float64, torch.float32):
-                eq, ev = check_contact_kernel(p, q, v, u, n, dtype)
-                checks.append({"model": name, "states": label, "B": len(q),
-                               "dtype": str(dtype).split(".")[-1],
-                               "max_abs_err_q": eq, "max_abs_err_v": ev,
-                               "max_abs_v": float(np.abs(v).max()),
-                               "tol_q": CONTACT_TOL[dtype][0],
-                               "tol_v_rel": CONTACT_TOL[dtype][1]})
-                if dtype == torch.float32 and name == "hopper":
-                    worst = max(worst, eq, ev)
+                errs = check_contact_kernel(p, q, v, u, n, dtype)
+                for L, (eq, ev) in errs.items():
+                    checks.append({"model": name, "states": label,
+                                   "B": len(q), "lanes": L,
+                                   "dtype": str(dtype).split(".")[-1],
+                                   "max_abs_err_q": eq, "max_abs_err_v": ev,
+                                   "max_abs_v": float(np.abs(v).max()),
+                                   "tol_q": CONTACT_TOL[dtype][0],
+                                   "tol_v_rel": CONTACT_TOL[dtype][1]})
+                    if dtype == torch.float32 and name == "hopper" \
+                            and L == cuda_planar.default_lanes(p):
+                        worst = max(worst, eq, ev)
         q, v, u = sets[0][1]
-        tq, tv, tu = (torch.tensor(a, dtype=torch.float32, device=dev)
-                      for a in (q, v, u))
-        times[name] = time_ms(lambda: cuda_planar.cuda_step_n_batched(
-            p, tq, tv, tu, n), 10)
+        for dtype, out in ((torch.float32, times), (torch.float64, times64)):
+            tq, tv, tu = (torch.tensor(a, dtype=dtype, device=dev)
+                          for a in (q, v, u))
+            out[name] = time_lanes(p, tq, tv, tu, n, 10)
 
-    # the main path's shape: Hopper, float32, 4096 environments, n = 4
+    # the main path's shape: Hopper, float32, 4096 environments, n = 4, at
+    # the model's lane-group size, and at L = 1 (one thread per environment)
     env = envs["hopper"]
     p, n = env._planar, env.frame_skip
+    lanes = cuda_planar.default_lanes(p)
     q, v, u = contact_test_states(p, env.model.qpos0, NUM_ENVS, seed=1)
     tq, tv, tu = (torch.tensor(a, dtype=torch.float32, device=dev)
                   for a in (q, v, u))
-    ms = time_ms(lambda: cuda_planar.cuda_step_n_batched(p, tq, tv, tu, n),
-                 20)
+    by_lanes = time_lanes(p, tq, tv, tu, n, 20)
+    ms, ms_lanes1 = by_lanes[lanes], by_lanes[1]
     plain_ms = time_ms(lambda: step_n_arrays(p, tq, tv, tu, n), 2)
     tq64, tv64, tu64 = tq.double(), tv.double(), tu.double()
     ms_f64 = time_ms(lambda: cuda_planar.cuda_step_n_batched(
@@ -399,19 +436,28 @@ def phase_kernels_contact(envs, smi):
     nbytes = NUM_ENVS * (4 * p.nv + len(p.actuators)) * 4
     bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
     ops_ms = NUM_ENVS * ops_per_env / PEAK_FP32_PER_S * 1e3
+    bound_ms = max(bytes_ms, ops_ms)
     return {
         "name": CONTACT, "route": "cuda",
         "source": cuda_planar.kernel_source(CONTACT),
         "replaces": "mjrl_tpu/ops/pallas_planar.py:47",
         "launches": None,             # filled in from the train_hopper phase
         "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_ms": bound_ms,
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": None,   # no single PyTorch call computes this function
+        "lanes": lanes, "ms_lanes1": ms_lanes1,
+        "speedup_vs_lanes1": ms_lanes1 / ms,
+        "roofline_share": bound_ms / ms,
+        "roofline_share_lanes1": bound_ms / ms_lanes1,
+        "ms_by_lanes": {"hopper_main_path_float32": by_lanes,
+                        "float32_B4096": times, "float64_B4096": times64},
+        "default_lanes": {k: cuda_planar.default_lanes(e._planar)
+                          for k, e in envs.items()},
+        "ptxas": ptxas,
         "ms_float64": ms_f64, "ms_dropped_states": ms_dropped,
-        "ops_per_env_step": ops_per_env, "ops_parts": parts, "bytes": nbytes, "bytes_ms": bytes_ms,
-        "ops_ms": ops_ms,
-        "ms_by_model_float32_B4096": times,
+        "ops_per_env_step": ops_per_env, "ops_parts": parts, "bytes": nbytes,
+        "bytes_ms": bytes_ms, "ops_ms": ops_ms,
         "shape": {"B": NUM_ENVS, "nv": p.nv, "nu": len(p.actuators),
                   "n": n, "dtype": "float32"},
         "card": smi, "checks": checks,
@@ -557,6 +603,7 @@ def phase_train(env_id, step_size, horizon, kernel, phase):
 
 
 def main():
+    t_start = time.time()
     phase = "device"
     try:
         smi = phase_device()
@@ -565,11 +612,11 @@ def main():
         contact_envs = {"hopper": HopperEnv(), "walker2d": Walker2dEnv(),
                         "half_cheetah": HalfCheetahEnv()}
         phase = "build"
-        phase_build({"swimmer": p, **{k: e._planar
-                                      for k, e in contact_envs.items()}})
+        ptxas = phase_build({"swimmer": p, **{k: e._planar
+                                              for k, e in contact_envs.items()}})
         phase = "kernels"
         kernel = phase_kernels(p, smi)
-        contact = phase_kernels_contact(contact_envs, smi)
+        contact = phase_kernels_contact(contact_envs, smi, ptxas)
         phase = "rollout"
         phase_rollout(kernel["ms"])
         phase = "train"
@@ -584,6 +631,7 @@ def main():
         traceback.print_exc()
         print(f"chip_smoke: phase '{phase}' failed", file=sys.stderr)
         sys.exit(1)
+    emit({"phase": "done", "seconds": time.time() - t_start})
     emit({"kernels": [kernel, contact]})
     print(smi, flush=True)
     emit({"ok": True,

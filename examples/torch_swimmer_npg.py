@@ -29,7 +29,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--job", default="torch_swimmer_exp1")
     ap.add_argument("--device", default=None,
-                    help="cuda / cpu (default: cuda when available)")
+                    help="cuda / cpu (default: cuda; without a GPU pass cpu)")
     ap.add_argument("--num_traj", type=int, default=4096)
     ap.add_argument("--niter", type=int, default=50)
     ap.add_argument("--horizon", type=int, default=None,

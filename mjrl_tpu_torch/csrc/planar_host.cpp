@@ -3,8 +3,9 @@
 // and steps a batch of environments in a plain loop, so the kernels'
 // arithmetic can be held against the plain PyTorch version without a GPU
 // (tests/test_torch_kernel_host.py).  The model picks the body, as the
-// wrapper picks the kernel.  Same C interface as the .cu files, minus the
-// stream.
+// wrapper picks the kernel; the contact body runs one lane per environment
+// (L = 1), where its group reductions are the identity.  Same C interface
+// as the .cu files, minus the stream.
 
 #include "planar_model.cuh"
 #include "planar_body.cuh"
@@ -24,7 +25,7 @@ void step_batch(const T* qpos, const T* qvel, const T* ctrl, T* qout,
     }
     for (int i = 0; i < NU; ++i) u[i] = ctrl[env * NU + i];
     if (PlanarModel::CONTACT_PATH) {
-      planar::contact_step_n<T, PlanarModel>(q, v, u, n);
+      planar::contact_step_n<T, PlanarModel, 1>(q, v, u, n, 0);
     } else {
       for (int s = 0; s < n; ++s) planar::substep<T, PlanarModel>(q, v, u);
     }

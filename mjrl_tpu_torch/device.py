@@ -4,8 +4,13 @@ import torch
 
 
 def default_device():
-    """``cuda`` when a GPU is available, ``cpu`` otherwise."""
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    """``cuda``: the port runs on the GPU.  Without one this raises; the CPU
+    is used only when a caller asks for it (``device="cpu"``)."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA GPU found (torch.cuda.is_available() is false): the "
+            "port runs on the GPU; pass device=\"cpu\" to run on the CPU")
+    return torch.device("cuda")
 
 
 def resolve_device(device=None):

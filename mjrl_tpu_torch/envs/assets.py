@@ -10,10 +10,11 @@ import numpy as np
 from mjrl_tpu_torch.physics.model import ModelBuilder
 
 
-def swimmer_model(solver=None):
+def swimmer_model(solver=None, dtype=np.float64):
     """Swimmer: planar 5-link chain in viscous fluid, Euler dt 0.005
     (assets/swimmer.xml: viscosity 0.000894, density 1000).  Returns the
-    ModelBuilder, or the finalized Model when ``solver`` is given."""
+    ModelBuilder, or the finalized Model when ``solver`` is given, its
+    constants rounded to ``dtype`` (``ModelBuilder.finalize``)."""
     b = ModelBuilder(timestep=0.005, gravity=(0, 0, -9.81),
                      integrator="euler", viscosity=0.000894, density=1000.0)
     b.add_geom(0, "plane", size=(10, 10, 1), contype=0, conaffinity=0,
@@ -45,4 +46,4 @@ def swimmer_model(solver=None):
     b.add_site(0, pos=(-5, 0, 0.15), name="target")
     for j in jids:
         b.add_actuator(j, gear=20.0, ctrlrange=(-1, 1))
-    return b if solver is None else b.finalize(solver=solver)
+    return b if solver is None else b.finalize(solver=solver, dtype=dtype)

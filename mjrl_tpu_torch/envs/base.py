@@ -84,7 +84,8 @@ class MujocoLikeEnv:
     def _init_common(self, dtype, device):
         self.dtype = dtype
         self.device = resolve_device(device)
-        self._planar = extract_planar(self.model)
+        self._planar = extract_planar(
+            self.model, np.float32 if dtype == torch.float32 else np.float64)
         if self._planar is None or self.needs_fk_obs:
             raise NotImplementedError(
                 "only models with a planar fast path and qpos/qvel "

@@ -7,6 +7,7 @@ only the heading qpos[2] ~ U(-pi, pi).
 
 import math
 
+import numpy as np
 import torch
 
 from mjrl_tpu_torch.envs.assets import swimmer_model
@@ -23,7 +24,10 @@ class SwimmerEnv(MujocoLikeEnv):
     # penalty stop lets NPG learn a nonphysical thrash gait); with
     # solver="newton" the planar fast path solves the exact limit QP
     def __init__(self, dtype=torch.float32, solver="newton", device=None):
-        self.model = swimmer_model(solver=solver)
+        # a float32 env rounds the model's constants to float32, as the JAX
+        # package finalizes its model in the env's dtype
+        np_dtype = np.float32 if dtype == torch.float32 else np.float64
+        self.model = swimmer_model(solver=solver, dtype=np_dtype)
         self._init_common(dtype, device)
 
     def _reset_scenery(self, n, generator):

@@ -13,13 +13,19 @@ model-traits struct:
   (hopper, walker2d, half-cheetah).
 
 ``emit_model_header`` writes the traits struct from a ``PlanarParams`` —
-sizes, tree structure, contact tables and every physical constant as
+sizes, tree structure, contact tables, the ownership of constraint rows by
+the lanes of a group (``lane_layout``) and every physical constant as
 ``constexpr`` — into the build directory, so the model's structure unrolls
 at compile time, as the Pallas kernel bakes its constants at trace time.
 
+The contact kernel steps each environment on a group of ``L`` lanes of a
+warp (``L`` in ``LANES``, fixed per build); ``default_lanes`` picks each
+model's ``L`` from measurements on an H100 (``PERF.md``).
+
 Build: ``nvcc`` for ``sm_90a`` into a shared library with a plain C
 interface, loaded with ``ctypes``; at first use, from ``csrc/`` alone, into
-``mjrl_tpu_torch/_build/<hash>/``.  Importing this module needs neither CUDA
+``mjrl_tpu_torch/_build/<hash>/``, one library per model (and per ``L`` for
+the contact kernel).  Importing this module needs neither CUDA
 nor ``nvcc``; asking for a kernel without them raises.
 
 ``cuda_step_n_batched`` is the one entry: for CUDA tensors it launches the
@@ -71,6 +77,25 @@ def reset_launch_counts():
         launch_counts[name] = 0
 
 
+# lane-group sizes the contact kernel is built for (each divides 32)
+LANES = (1, 8, 16, 32)
+
+# the contact kernel's lanes per environment, by model (nv, constraint rows):
+# the fastest of LANES on an H100 at 4096 environments, in float32 and in
+# float64 (chip_smoke.py, PERF.md section 6)
+CHOSEN_LANES = {
+    (6, 38): 8,      # Hopper
+    (9, 62): 8,      # Walker2d
+    (9, 70): 8,      # HalfCheetah
+}
+
+
+def default_lanes(p: PlanarParams) -> int:
+    """Lanes per environment of the contact kernel for ``p``: the measured
+    choice for the gym models, 8 (every measured model's) for another."""
+    return CHOSEN_LANES.get((p.nv, n_planar_rows(p)), 8)
+
+
 def kernel_name(p: PlanarParams) -> str:
     """The kernel that steps ``p``: the same test as the TPU kernel's
     branch (contacts or RK4 -> the contact kernel)."""
@@ -81,8 +106,8 @@ def kernel_name(p: PlanarParams) -> str:
 def kernel_source(name: str) -> str:
     return "mjrl_tpu_torch/csrc/" + KERNELS[name][0]
 
-_libs = {}          # PlanarParams -> (ctypes lib, build info dict)
-_host_libs = {}     # PlanarParams -> ctypes lib (g++ build of the body)
+_libs = {}          # (PlanarParams, lanes) -> (kernel functions, build info)
+_host_libs = {}     # (PlanarParams, lanes) -> ctypes lib (g++ build)
 
 
 # ---------------------------------------------------------------------------
@@ -113,6 +138,71 @@ def _accessor(name, ctype, values, dims):
             f"    return t[{index}];\n  }}\n")
 
 
+def _shared_contacts(p: PlanarParams):
+    """Per-contact constants (k, b, solimp, mu, invweight, condim), points
+    (plane-sphere, capsule end caps) first, then capsule-capsule pairs."""
+    return ([c[5:11] for c in p.contacts_pt]
+            + [c[8:14] for c in p.contacts_cc])
+
+
+def _row_layout(p: PlanarParams):
+    """The constraint rows in the plain version's order -> (first row of
+    each contact or -1, elliptic triple of each contact or -1, friction of
+    each triple, first row of the elliptic block).  Rows: limits, then per
+    contact one normal row (condim 1) or 4 pyramidal facets inline;
+    elliptic triples go to the block [n(K), t1(K), t2(K)] that starts at the
+    last value."""
+    elliptic = p.cone == ELLIPTIC_CONE
+    con_row, con_tri, tri_mu = [], [], []
+    r = sum(1 for x in p.limited if x)
+    for (_kc, _bc, _si, mu, _iw, cd) in _shared_contacts(p):
+        if cd == 1:
+            con_row.append(r); con_tri.append(-1); r += 1
+        elif elliptic:
+            con_row.append(-1); con_tri.append(len(tri_mu))
+            tri_mu.append(mu)
+        else:
+            con_row.append(r); con_tri.append(-1); r += 4
+    soc_start, ntri = r, len(tri_mu)
+    if soc_start + 3 * ntri != n_planar_rows(p):
+        raise AssertionError("row layout disagrees with n_planar_rows")
+    if ntri and _planar_soc(p) != (soc_start, ntri, tuple(tri_mu)):
+        raise AssertionError("elliptic block disagrees with _planar_soc")
+    return con_row, con_tri, tri_mu, soc_start
+
+
+def lane_layout(p: PlanarParams, lanes: int):
+    """Which lane of a group of ``lanes`` owns each constraint row, and in
+    which of its slots -> (lane per row, slot per row, slots per lane,
+    triple groups).
+
+    Elliptic triple k (rows soc + k, soc + K + k, soc + 2K + k) goes whole
+    to lane k % L, slots 3 (k // L) + 0, 1, 2: the cone projection and the
+    shared tangent scale mix its rows.  Every other row, in order, goes to
+    the lane that holds fewest rows so far (the lowest such lane) at its
+    next free slot; without triples that is row r -> lane r % L, slot
+    r // L.  A lane then holds at most max(3 ceil(K / L), ceil(C / L)) <=
+    ceil(C / L) + 2 slots."""
+    if lanes not in LANES:
+        raise ValueError(f"lanes must be one of {LANES}, got {lanes}")
+    _, _, tri_mu, soc = _row_layout(p)
+    ntri = len(tri_mu)
+    nrows = soc + 3 * ntri
+    lane, slot = [0] * nrows, [0] * nrows
+    load = [0] * lanes
+    for k in range(ntri):
+        owner, group = k % lanes, k // lanes
+        for part in range(3):
+            r = soc + part * ntri + k
+            lane[r], slot[r] = owner, 3 * group + part
+        load[owner] += 3
+    for r in range(soc):
+        owner = min(range(lanes), key=lambda i: (load[i], i))
+        lane[r], slot[r] = owner, load[owner]
+        load[owner] += 1
+    return lane, slot, max(load), -(-ntri // lanes)
+
+
 def emit_model_header(p: PlanarParams) -> str:
     """``struct PlanarModel`` for ``csrc/planar_body.cuh``: the sizes,
     the tree and every constant of ``p`` as constexpr tables.  Derived
@@ -133,30 +223,12 @@ def emit_model_header(p: PlanarParams) -> str:
         return [d0, dw, max(width, 1e-12),
                 min(max(mid, 1e-4), 1.0 - 1e-4), power]
 
-    # contact tables: points (plane-sphere, capsule end caps) first, then
-    # capsule-capsule pairs; the shared per-contact constants are indexed
-    # over both.  Rows: limits, then per contact one normal row (condim 1)
-    # or 4 pyramidal facets inline; elliptic triples go to the block
-    # [n(K), t1(K), t2(K)] that starts at soc_start.
     pts, ccs = p.contacts_pt, p.contacts_cc
-    shared = [c[5:11] for c in pts] + [c[8:14] for c in ccs]
-    elliptic = p.cone == ELLIPTIC_CONE
-    con_row, con_tri, tri_mu = [], [], []
-    r = len(lim)
-    for (_kc, _bc, _si, mu, _iw, cd) in shared:
-        if cd == 1:
-            con_row.append(r); con_tri.append(-1); r += 1
-        elif elliptic:
-            con_row.append(-1); con_tri.append(len(tri_mu))
-            tri_mu.append(mu)
-        else:
-            con_row.append(r); con_tri.append(-1); r += 4
-    soc_start, ntri = r, len(tri_mu)
+    shared = _shared_contacts(p)
+    con_row, con_tri, tri_mu, soc_start = _row_layout(p)
+    ntri = len(tri_mu)
     nrows = soc_start + 3 * ntri
-    if nrows != n_planar_rows(p):
-        raise AssertionError("row layout disagrees with n_planar_rows")
-    if ntri and _planar_soc(p) != (soc_start, ntri, tuple(tri_mu)):
-        raise AssertionError("elliptic block disagrees with _planar_soc")
+    layouts = [lane_layout(p, L) for L in LANES]
 
     flat2 = lambda rows: [x for r in rows for x in r]
     out = ["// generated by mjrl_tpu_torch/ops/cuda_planar.py::"
@@ -183,7 +255,12 @@ def emit_model_header(p: PlanarParams) -> str:
            "  static constexpr bool HAS_SPRINGS = "
            f"{str(bool(any(stiffness))).lower()};\n"
            "  static constexpr bool HAS_DAMPING = "
-           f"{str(bool(any(p.damping))).lower()};\n"]
+           f"{str(bool(any(p.damping))).lower()};\n"
+           "  // row ownership by the lanes of a group, per L in LANES\n"
+           "  PLANAR_HD static constexpr int lanes_index(int L) {\n"
+           "    return " + "".join(f"L == {L} ? {i} : "
+                                    for i, L in enumerate(LANES))
+           + "-1;\n  }\n"]
     A = _accessor
     out += [
         A("parent", "int", par, (nb,)),
@@ -251,6 +328,12 @@ def emit_model_header(p: PlanarParams) -> str:
         A("con_row", "int", con_row, (len(shared),)),
         A("con_tri", "int", con_tri, (len(shared),)),
         A("tri_mu", "double", tri_mu, (ntri,)),
+        A("own_lane", "int", [x for lay in layouts for x in lay[0]],
+          (len(LANES), nrows)),
+        A("own_slot", "int", [x for lay in layouts for x in lay[1]],
+          (len(LANES), nrows)),
+        A("slots", "int", [lay[2] for lay in layouts], (len(LANES),)),
+        A("tri_groups", "int", [lay[3] for lay in layouts], (len(LANES),)),
         "};\n"]
     return "".join(out)
 
@@ -332,12 +415,31 @@ def _parse_ptxas(log: str):
     return info
 
 
-def build_kernel(p: PlanarParams):
-    """Build (or find built) the CUDA library for ``p`` ->
+def _lanes_for(p: PlanarParams, lanes):
+    """The lane-group size a build or launch of ``p``'s kernel uses: None
+    for the smooth kernel (one thread per environment), else ``lanes`` or
+    the model's default."""
+    if kernel_name(p) != "planar_step_contact":
+        if lanes not in (None, 1):
+            raise ValueError("the smooth kernel runs one thread per "
+                             "environment")
+        return None
+    if lanes is None:
+        return default_lanes(p)
+    if lanes not in LANES:
+        raise ValueError(f"lanes must be one of {LANES}, got {lanes}")
+    return int(lanes)
+
+
+def build_kernel(p: PlanarParams, lanes=None):
+    """Build (or find built) the CUDA library for ``p`` (and ``lanes`` per
+    environment for the contact kernel; None: the model's default) ->
     (lib path, info dict with build seconds and ptxas figures)."""
     source, headers, _ = KERNELS[kernel_name(p)]
+    lanes = _lanes_for(p, lanes)
+    defines = [] if lanes is None else [f"-DPLANAR_LANES={lanes}"]
     header = emit_model_header(p)
-    bdir = _build_dir_for(header, (source,) + headers)
+    bdir = _build_dir_for(header + " ".join(defines), (source,) + headers)
     so = os.path.join(bdir, "libplanar_step.so")
     log_path = os.path.join(bdir, "nvcc.log")
     seconds = 0.0
@@ -351,26 +453,28 @@ def build_kernel(p: PlanarParams):
         seconds = _compile(
             [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-             "-I", bdir, "-I", CSRC_DIR,
+             *defines, "-I", bdir, "-I", CSRC_DIR,
              os.path.join(CSRC_DIR, source)], so, log_path)
     with open(log_path) as f:
         ptxas = _parse_ptxas(f.read())
     return so, dict(build_seconds=seconds, ptxas=ptxas, build_dir=bdir)
 
 
-def build_kernels(params):
-    """Build the kernels of several models at once, one ``nvcc`` per model,
-    all started together -> list of (lib path, info dict) in order."""
+def build_kernels(items):
+    """Build several kernels at once, one ``nvcc`` per item, all started
+    together.  items: ``(PlanarParams, lanes)`` -> list of (lib path, info
+    dict) in order."""
     from concurrent.futures import ThreadPoolExecutor
-    params = list(params)
-    with ThreadPoolExecutor(max(1, len(params))) as pool:
-        return list(pool.map(build_kernel, params))
+    items = list(items)
+    with ThreadPoolExecutor(max(1, len(items))) as pool:
+        return list(pool.map(lambda it: build_kernel(*it), items))
 
 
-def _load_kernel(p: PlanarParams):
-    hit = _libs.get(p)
+def _load_kernel(p: PlanarParams, lanes):
+    key = (p, lanes)
+    hit = _libs.get(key)
     if hit is None:
-        so, info = build_kernel(p)
+        so, info = build_kernel(p, lanes)
         lib = ctypes.CDLL(so)
         vp = ctypes.c_void_p
         entry = KERNELS[kernel_name(p)][2]
@@ -381,63 +485,91 @@ def _load_kernel(p: PlanarParams):
             fn.argtypes = [vp, vp, vp, vp, vp, ctypes.c_int, ctypes.c_int,
                            vp]
             fn.restype = ctypes.c_int
-        dims = (ctypes.c_int * 4)()
+        dims = (ctypes.c_int * 5)()
         lib.planar_model_dims(dims)
         if tuple(dims)[:3] != (p.nv, p.nbody, len(p.actuators)):
             raise RuntimeError("kernel library built for another model")
-        hit = _libs[p] = (fns, info)
+        if lanes is not None and dims[4] != lanes:
+            raise RuntimeError(f"kernel library built for {dims[4]} lanes, "
+                               f"not {lanes}")
+        hit = _libs[key] = (fns, info)
     return hit
 
 
-def kernel_build_info(p: PlanarParams):
+def kernel_build_info(p: PlanarParams, lanes=None):
     """Build figures of the kernel for ``p`` (builds it if needed)."""
-    return _load_kernel(p)[1]
+    return _load_kernel(p, _lanes_for(p, lanes))[1]
 
 
-def load_host_body(p: PlanarParams):
-    """The kernel body compiled with g++ for the host (csrc/planar_host.cpp)
-    -> ctypes lib with planar_host_step_f32/_f64.  For tests: lets the
-    kernel's arithmetic be checked where there is no GPU."""
-    lib = _host_libs.get(p)
+def load_host_body(p: PlanarParams, lanes: int = 1):
+    """The kernel body compiled with g++ for the host -> ctypes lib.  For
+    tests: lets the kernel's arithmetic be checked where there is no GPU.
+    ``lanes`` 1: ``csrc/planar_host.cpp``, one thread per environment
+    (``planar_host_step_f32/_f64``); 8, 16 or 32: the contact body with the
+    lanes of a group as fibers, ``csrc/planar_host_lanes.cpp``
+    (``planar_host_lanes_step_f32/_f64``)."""
+    lib = _host_libs.get((p, lanes))
     if lib is None:
         gxx = shutil.which("g++")
         if gxx is None:
             raise RuntimeError("g++ not found")
+        if lanes != 1 and (lanes not in LANES
+                           or kernel_name(p) != "planar_step_contact"):
+            raise ValueError(f"no host harness for {lanes} lanes of "
+                             f"{kernel_name(p)}")
+        source, prefix = (("planar_host.cpp", "planar_host_step")
+                          if lanes == 1 else
+                          ("planar_host_lanes.cpp", "planar_host_lanes_step"))
         header = emit_model_header(p)
-        bdir = _build_dir_for(header, ("planar_host.cpp", "planar_body.cuh",
+        bdir = _build_dir_for(header, (source, "planar_body.cuh",
                                        "planar_contact.cuh"))
-        so = os.path.join(bdir, "libplanar_host.so")
+        so = os.path.join(bdir, "lib" + source.replace(".cpp", ".so"))
         if not os.path.exists(so):
             _write_header(bdir, header)
             _compile([gxx, "-std=c++17", "-O2", "-shared", "-fPIC",
                       "-I", bdir, "-I", CSRC_DIR,
-                      os.path.join(CSRC_DIR, "planar_host.cpp")],
-                     so, os.path.join(bdir, "gxx.log"))
+                      os.path.join(CSRC_DIR, source)],
+                     so, os.path.join(bdir, source + ".log"))
         lib = ctypes.CDLL(so)
-        for fn, ct in ((lib.planar_host_step_f32, ctypes.c_float),
-                       (lib.planar_host_step_f64, ctypes.c_double)):
+        for suffix, ct in (("_f32", ctypes.c_float),
+                           ("_f64", ctypes.c_double)):
+            fn = getattr(lib, prefix + suffix)
             ptr = ctypes.POINTER(ct)
             fn.argtypes = [ptr, ptr, ptr, ptr, ptr, ctypes.c_int,
-                           ctypes.c_int]
-            fn.restype = None
-        _host_libs[p] = lib
+                           ctypes.c_int] + ([ctypes.c_int] if lanes != 1
+                                            else [])
+            fn.restype = None if lanes == 1 else ctypes.c_int
+        _host_libs[p, lanes] = lib
     return lib
 
 
-def host_step_n_batched(p: PlanarParams, qpos, qvel, ctrl, n: int):
+def host_step_n_batched(p: PlanarParams, qpos, qvel, ctrl, n: int,
+                        lanes: int = 1):
     """numpy (B, nv), (B, nv), (B, nu) -> stepped numpy arrays through the
-    g++ build of the kernel body (float32 or float64)."""
+    g++ build of the kernel body (float32 or float64) at ``lanes`` per
+    environment; raises if the lanes of a group make different numbers of
+    group reductions or end with different bits."""
     import numpy as np
-    lib = load_host_body(p)
-    dt = qpos.dtype
-    fn, ct = {np.dtype(np.float32): (lib.planar_host_step_f32,
-                                     ctypes.c_float),
-              np.dtype(np.float64): (lib.planar_host_step_f64,
-                                     ctypes.c_double)}[np.dtype(dt)]
+    lib = load_host_body(p, lanes)
+    dt = np.dtype(qpos.dtype)
+    prefix = "planar_host_step" if lanes == 1 else "planar_host_lanes_step"
+    suffix, ct = {np.dtype(np.float32): ("_f32", ctypes.c_float),
+                  np.dtype(np.float64): ("_f64", ctypes.c_double)}[dt]
+    fn = getattr(lib, prefix + suffix)
     q, v, u = (np.ascontiguousarray(a, dt) for a in (qpos, qvel, ctrl))
     qo, vo = np.empty_like(q), np.empty_like(v)
     ptr = lambda a: a.ctypes.data_as(ctypes.POINTER(ct))
-    fn(ptr(q), ptr(v), ptr(u), ptr(qo), ptr(vo), q.shape[0], int(n))
+    args = (ptr(q), ptr(v), ptr(u), ptr(qo), ptr(vo), q.shape[0], int(n))
+    if lanes == 1:
+        fn(*args)
+        return qo, vo
+    rc = fn(*args, int(lanes))
+    if rc < 0:
+        raise RuntimeError(f"the {lanes} lanes of a group made different "
+                           "numbers of group reductions")
+    if rc > 0:
+        raise RuntimeError(f"{rc} environments' lanes ended with different "
+                           "bits")
     return qo, vo
 
 
@@ -445,14 +577,17 @@ def host_step_n_batched(p: PlanarParams, qpos, qvel, ctrl, n: int):
 # the wrapper
 # ---------------------------------------------------------------------------
 
-def cuda_step_n_batched(p: PlanarParams, qpos, qvel, ctrl, n: int):
+def cuda_step_n_batched(p: PlanarParams, qpos, qvel, ctrl, n: int,
+                        lanes=None):
     """(B, nv), (B, nv), (B, nu) -> stepped (B, nv) x2: one whole control
     step (``n`` substeps) for every environment.
 
     CUDA tensors: one launch of the hand-written kernel the model needs
     (smooth, or contact / RK4) on the current stream, no synchronisation;
-    anything the kernel does not take raises.  CPU tensors: the plain
-    PyTorch version."""
+    anything the kernel does not take raises.  ``lanes``: lanes per
+    environment of the contact kernel (one of ``LANES``; None: the model's
+    ``default_lanes``).  CPU tensors: the plain PyTorch version."""
+    lanes = _lanes_for(p, lanes)
     if qpos.device.type == "cpu":
         return step_n_arrays(p, qpos, qvel, ctrl, n)
     if qpos.device.type != "cuda":
@@ -476,7 +611,7 @@ def cuda_step_n_batched(p: PlanarParams, qpos, qvel, ctrl, n: int):
     for name, t in (("qpos", qpos), ("qvel", qvel), ("ctrl", ctrl)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    fns, _ = _load_kernel(p)
+    fns, _ = _load_kernel(p, lanes)
     qout = torch.empty_like(qpos)
     vout = torch.empty_like(qvel)
     fn = fns[qpos.dtype]

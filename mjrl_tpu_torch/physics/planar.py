@@ -22,6 +22,7 @@ half-cheetah; plain version of ``csrc/planar_contact.cuh``), whose dual
 solve runs on stacked tensors.
 """
 
+from dataclasses import fields, replace
 from typing import NamedTuple, Tuple
 
 import numpy as np
@@ -91,8 +92,13 @@ class PlanarParams(NamedTuple):
     cone: int = 0
 
 
-def extract_planar(model: Model):
+def extract_planar(model: Model, dtype=np.float64):
     """PlanarParams if the model is a supported planar tree, else None.
+
+    ``dtype``: the precision the model was finalized in.  The constants
+    derived here (fluid boxes, limit stiffness and damping, contact
+    regularizers) are computed in it, on the model's arrays cast to it, as
+    the JAX package computes them on its float32 model's float32 arrays.
 
     Only implicit-solver (``solver="newton"``) models qualify: the fast
     path implements MuJoCo's soft-constraint limit/contact response
@@ -107,6 +113,12 @@ def extract_planar(model: Model):
     plane-capsule end caps, capsule-capsule)."""
     if model.solver != PGS or model.integrator not in (EULER, RK4):
         return None
+    if np.dtype(dtype) != np.float64:
+        model = replace(model, **{
+            f.name: getattr(model, f.name).astype(dtype)
+            for f in fields(model)
+            if isinstance(getattr(model, f.name), np.ndarray)
+            and getattr(model, f.name).dtype == np.float64})
     cone = int(getattr(model, "cone", 0))
     if model.nq != model.nv or model.nbody < 2 or model.ntendon \
             or model.neq:

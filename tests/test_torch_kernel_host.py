@@ -24,6 +24,14 @@ float32 at 3e-4 (positions) and 3e-3
 the JAX package's own float32 check of this branch; a flipped restart test
 of the accelerated descent is a legitimate difference in float32.
 
+The contact body is written for a group of L lanes per environment; g++
+builds it at L = 1 (``csrc/planar_host.cpp``) and, with the lanes of a group
+run as fibers and the group sums done as the warp's xor butterfly, at
+L = 8, 16 and 32 (``csrc/planar_host_lanes.cpp``): the same bounds hold at
+every L, and the lanes of a group must end with the same bits.  The
+ownership of rows by lanes (``cuda_planar.lane_layout``) is checked as a
+table.
+
 States lie off the limit and contact boundaries, where the two could
 legitimately take different branches.
 
@@ -251,6 +259,85 @@ def test_contact_host_body_on_the_cheetah_explosion_states(contact_model,
     assert list(ok) == [True, True, True, False, True]
 
 
+# ---- lane groups: row ownership and the body at L > 1 ------------------------
+
+OWNERSHIP_CASES = [(m, c) for m in CONTACT_MODELS for c in (None, "elliptic")]
+
+
+@pytest.mark.parametrize("lanes", cuda_planar.LANES)
+@pytest.mark.parametrize("name,cone", OWNERSHIP_CASES,
+                         ids=[f"{m}_{c or 'pyramidal'}"
+                              for m, c in OWNERSHIP_CASES])
+def test_lane_ownership_table(name, cone, lanes):
+    """Every row has exactly one (lane, slot); each elliptic triple sits on
+    one lane in slots 3j, 3j+1, 3j+2 of one of the triple groups; no lane
+    holds more than ceil(C / L) + 2 slots; pyramidal rows go round robin;
+    and the generated header carries the same tables."""
+    p, _ = contact_params(name, cone)
+    lane, slot, nslots, ngroups = cuda_planar.lane_layout(p, lanes)
+    C = tplanar.n_planar_rows(p)
+    assert len(lane) == len(slot) == C
+    assert all(0 <= l < lanes for l in lane)
+    assert len(set(zip(lane, slot))) == C                # one row per slot
+    assert nslots == max(slot) + 1 <= -(-C // lanes) + 2
+    _, _, tri_mu, soc = cuda_planar._row_layout(p)
+    K = len(tri_mu)
+    assert ngroups == -(-K // lanes)
+    assert (K > 0) == (cone == "elliptic")
+    tri_rows = set()
+    for k in range(K):
+        rows = [soc + k, soc + K + k, soc + 2 * K + k]
+        tri_rows.update(rows)
+        assert len({lane[r] for r in rows}) == 1
+        j = slot[rows[0]] // 3
+        assert [slot[r] for r in rows] == [3 * j, 3 * j + 1, 3 * j + 2]
+        assert j < ngroups
+    for r in range(C):
+        if r in tri_rows:
+            continue
+        # a row outside the triples never shares a slot group with a
+        # triple on its own lane
+        assert not any(lane[t] == lane[r] and slot[t] // 3 == slot[r] // 3
+                       for t in tri_rows)
+        if K == 0:
+            assert (lane[r], slot[r]) == (r % lanes, r // lanes)
+    header = cuda_planar.emit_model_header(p)
+    li = cuda_planar.LANES.index(lanes)
+
+    def table(fname):
+        m = re.search(fname + r"\(int i0, int i1\) \{\n\s*constexpr int t\[\] "
+                      r"= \{([^}]*)\}", header)
+        vals = [int(x) for x in m.group(1).split(",")]
+        return vals[li * C:(li + 1) * C]
+    assert table("own_lane") == lane and table("own_slot") == slot
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32],
+                         ids=["float64", "float32"])
+@pytest.mark.parametrize("lanes", [L for L in cuda_planar.LANES if L > 1])
+@pytest.mark.parametrize("name,cone", CONTACT_CASES,
+                         ids=["hopper", "walker2d", "half_cheetah",
+                              "hopper_elliptic"])
+def test_contact_host_body_on_lane_groups_matches_plain_version(
+        contact_model, name, cone, lanes, dtype):
+    """The contact body at L lanes per environment, the lanes run as
+    fibers and the group sums done as the warp's xor butterfly: the same
+    bounds as at L = 1, and every lane of a group ends with the same bits
+    (host_step_n_batched raises otherwise)."""
+    p, qpos0, n = contact_model(name, cone)
+    parts = [contact_states(p, qpos0, k, B=1, seed=30 + i)
+             for i, k in enumerate(("resting", "penetrating", "limits"))]
+    q, v, u = (np.ascontiguousarray(np.concatenate([x[i] for x in parts]),
+                                    dtype) for i in range(3))
+    gq, gv = cuda_planar.host_step_n_batched(p, q, v, u, n, lanes=lanes)
+    rq, rv = tplanar.step_n_arrays(p, torch.tensor(q), torch.tensor(v),
+                                   torch.tensor(u), n)
+    tol_q, tol_v = CONTACT_TOLS[dtype]
+    np.testing.assert_allclose(gq, rq.numpy(), rtol=tol_q, atol=tol_q)
+    np.testing.assert_allclose(gv, rv.numpy(), rtol=tol_v,
+                               atol=tol_v * max(1.0, np.abs(rv.numpy()).max()))
+
+
 def test_contact_host_body_zero_substeps_is_identity(contact_model):
     p, qpos0, _ = contact_model("hopper", None)
     q, v, u = contact_states(p, qpos0, "resting", B=3)
@@ -303,12 +390,15 @@ def test_cuda_kernel_matches_plain_version_on_the_card(params, B):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("lanes", cuda_planar.LANES)
 @pytest.mark.parametrize("name,cone", CONTACT_CASES,
                          ids=["hopper", "walker2d", "half_cheetah",
                               "hopper_elliptic"])
-def test_cuda_contact_kernel_matches_plain_version_on_the_card(name, cone):
-    """The contact kernel itself, on a GPU: float64 at 1e-9, float32 at
-    3e-4 / 3e-3, one launch of that kernel counted per call."""
+def test_cuda_contact_kernel_matches_plain_version_on_the_card(name, cone,
+                                                               lanes):
+    """The contact kernel itself, on a GPU, at each lane-group size built:
+    float64 at 1e-9, float32 at 3e-4 / 3e-3, one launch of that kernel
+    counted per call."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU and nvcc")
     p, qpos0 = contact_params(name, cone)
@@ -321,7 +411,8 @@ def test_cuda_contact_kernel_matches_plain_version_on_the_card(name, cone):
         a, b, c = (torch.tensor(x, dtype=dtype, device="cuda")
                    for x in (q, v, u))
         before = dict(cuda_planar.launch_counts)
-        gq, gv = cuda_planar.cuda_step_n_batched(p, a, b, c, n)
+        gq, gv = cuda_planar.cuda_step_n_batched(p, a, b, c, n,
+                                                 lanes=lanes)
         torch.cuda.synchronize()
         before["planar_step_contact"] += 1
         assert cuda_planar.launch_counts == before

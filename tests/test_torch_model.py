@@ -6,6 +6,12 @@ package's (float64).  Tolerances: 1e-12 on fields that are copied or
 computed by the same numpy code, 1e-9 on the inverse-weight tables, which
 the port computes with its own composite-rigid-body evaluation instead of
 the JAX package's general 3D engine.
+
+The float32 Swimmer env's ``PlanarParams`` are held to the JAX package's
+float32 model bit for bit, except ``invweight0``: the JAX package takes
+M(qpos0) from its float32 engine, the port from a float64 evaluation of the
+same float32 constants, so the two tables differ by float32 rounding of the
+engine (1.5e-5 relative); held at 3e-5.
 """
 
 import dataclasses
@@ -16,8 +22,11 @@ import pytest
 
 from mjrl_tpu.envs.assets import swimmer_model as jax_swimmer_model
 from mjrl_tpu.physics.planar import extract_planar as jax_extract_planar
+import torch
+
 from mjrl_tpu_torch import envs as torch_envs
 from mjrl_tpu_torch.envs.assets import swimmer_model
+from mjrl_tpu_torch.envs.swimmer import SwimmerEnv
 from mjrl_tpu_torch.physics import model as tmodel
 from mjrl_tpu_torch.physics.planar import (PlanarParams, chain_mask,
                                            extract_planar)
@@ -85,6 +94,46 @@ def test_planar_params_field_matches_jax(planars, name):
     assert pj is not None and pt is not None
     tol = 1e-9 if name == "invweight0" else 1e-12
     _same(getattr(pj, name), getattr(pt, name), tol)
+
+
+@pytest.fixture(scope="module")
+def planars_f32():
+    return (jax_extract_planar(jax_swimmer_model().finalize(
+                jnp.float32, solver="newton")),
+            SwimmerEnv(dtype=torch.float32, device="cpu")._planar)
+
+
+def _bits(x):
+    """Nested tuples of numbers -> a flat list of python floats."""
+    if isinstance(x, (tuple, list)):
+        return [y for e in x for y in _bits(e)]
+    return [float(x)]
+
+
+@pytest.mark.parametrize("name", PlanarParams._fields)
+def test_float32_swimmer_planar_params_field_matches_jax(planars_f32, name):
+    """The float32 SwimmerEnv's model is finalized in float32, as the JAX
+    package's float32 Swimmer is: every field equal bit for bit, derived
+    constants (fluid boxes, limit k and b) included; invweight0 at 3e-5
+    relative (see the module docstring)."""
+    pj, pt = planars_f32
+    a, b = _bits(getattr(pj, name)), _bits(getattr(pt, name))
+    assert len(a) == len(b)
+    if name == "invweight0":
+        np.testing.assert_allclose(b, a, rtol=3e-5, atol=0)
+        assert [float(np.float32(x)) for x in b] == b   # float32 values
+    else:
+        assert a == b
+
+
+def test_float32_swimmer_differs_from_float64_in_the_last_bits(planars,
+                                                               planars_f32):
+    """The float32 model is not the float64 one: its timestep and limit
+    stiffness are the float32 model's."""
+    p64, p32 = planars[1], planars_f32[1]
+    assert p32.timestep == float(np.float32(0.005)) != p64.timestep == 0.005
+    assert p32.limit_k != p64.limit_k
+    assert p32.limit_k == tuple(float(np.float32(x)) for x in p32.limit_k)
 
 
 def test_planar_params_swimmer_shape(planars):

@@ -93,6 +93,21 @@ def test_wrapper_takes_plain_version_for_cpu_tensors(params):
     assert cuda_planar.launch_counts == before
 
 
+def test_wrapper_lanes_argument(params):
+    """The contact kernel's lanes per environment: the measured choice (8)
+    by default, one of LANES when given; the smooth kernel takes none.
+    A value no kernel is built for raises, on CPU tensors too."""
+    _, pt = params
+    rk4 = pt._replace(integrator=RK4)
+    assert cuda_planar.default_lanes(rk4) == 8
+    q, v, u = (torch.tensor(a) for a in random_states(2))
+    for p, lanes in ((rk4, 3), (rk4, 64), (pt, 8)):
+        with pytest.raises(ValueError, match="lanes|one thread"):
+            cuda_planar.cuda_step_n_batched(p, q, v, u, 1, lanes=lanes)
+    gq, _ = cuda_planar.cuda_step_n_batched(pt, q, v, u, 1, lanes=1)
+    assert torch.equal(gq, tplanar.step_n_arrays(pt, q, v, u, 1)[0])
+
+
 def test_float32_plain_version_close_to_float64(params):
     """The float32 plain version stays within the kernel's float32 bounds
     (q 2e-5, v 2e-4) of the float64 one on the random states."""

@@ -21,6 +21,7 @@ from mjrl_tpu_torch.baselines import LinearBaseline, ZeroBaseline
 from mjrl_tpu_torch.device import default_device, make_generator, \
     resolve_device
 from mjrl_tpu_torch.envs import GymEnv
+from mjrl_tpu_torch.envs.gym_suite import HopperEnv
 from mjrl_tpu_torch.envs.swimmer import SwimmerEnv
 from mjrl_tpu_torch.models.policies import MLP
 from mjrl_tpu_torch.samplers.rollout import sample_paths
@@ -182,13 +183,39 @@ def test_agent_rejects_mixed_devices_and_unported_options():
         NPG(e, policy, baseline, device="cpu", autoreset=True)
 
 
-def test_device_helpers():
-    want = "cuda" if torch.cuda.is_available() else "cpu"
-    assert default_device().type == want
-    assert resolve_device(None).type == want
+def test_device_helpers(monkeypatch):
+    """The default device is the GPU; without one it raises, naming the
+    missing card, and the CPU is used only when asked for."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for fn in (default_device, resolve_device, lambda: make_generator(5)):
+        with pytest.raises(RuntimeError, match="no CUDA GPU"):
+            fn()
     assert resolve_device("cpu") == torch.device("cpu")
     g = make_generator(5, "cpu")
     assert g.device.type == "cpu" and g.initial_seed() == 5
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert default_device() == resolve_device(None) == torch.device("cuda")
+
+
+ENTRY_POINTS = {
+    "SwimmerEnv": lambda: SwimmerEnv(),
+    "HopperEnv": lambda: HopperEnv(),
+    "GymEnv": lambda: GymEnv("mjrl_swimmer-v0"),
+    "MLP": lambda: MLP(small_gym_env().spec, hidden_sizes=HID),
+    "LinearBaseline": lambda: LinearBaseline(small_gym_env().spec),
+    "NPG": lambda: NPG(small_gym_env(), MLP(small_gym_env().spec,
+                                            hidden_sizes=HID, device="cpu"),
+                       LinearBaseline(small_gym_env().spec, device="cpu")),
+}
+
+
+@pytest.mark.parametrize("name", list(ENTRY_POINTS))
+def test_entry_point_without_a_card_raises(monkeypatch, name):
+    """An entry point given no device does not carry on quietly on the CPU
+    when there is no card."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        ENTRY_POINTS[name]()
 
 
 def test_gym_env_api():
