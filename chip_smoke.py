@@ -9,16 +9,20 @@ non-zero with the phase's name:
 1. device   refuses to run without CUDA; prints the card's name and power
             limit as nvidia-smi gives them.
 2. build    builds every kernel from mjrl_tpu_torch/csrc with nvcc, one
-            process per library, all started together: the smooth kernel
-            for the swimmer, the contact / RK4 kernel for Hopper, Walker2d
-            and HalfCheetah at every lane-group size L (1, 8, 16, 32 lanes
-            per environment); prints seconds, registers, stack frame and
-            spills.
-3. kernels  each kernel against its plain PyTorch version ON THE CARD, same
-            numpy-seeded inputs, at the shapes the main path gives it, with
-            its time, the plain version's time and its roofline bound; the
-            contact kernel at every L, timed in turns (L = 1, the others,
-            the others again, L = 1) on one card.
+            process per library, all started together, at every lane-group
+            size L (lanes per environment): the smooth kernel for the
+            swimmer at L = 1, 2, 4, 8, the contact / RK4 kernel for Hopper,
+            Walker2d and HalfCheetah at L = 1, 8, 16, 32; prints seconds,
+            registers, stack frame and spills.
+3. kernels  each kernel at every L against its plain PyTorch version ON THE
+            CARD, same numpy-seeded inputs, at the shapes the main path gives
+            it, with its time, the plain version's time and its roofline
+            bound; the L of a kernel timed in turns (L = 1, the others, the
+            others again, L = 1) on one card.  A kernel's time is the
+            device's time per launch: the calls are replayed as a CUDA graph,
+            so the wrapper's host cost (tens of microseconds, more than the
+            smooth kernel takes) stays out; each kernel's host-paced time
+            (a loop of calls from Python) is printed beside it.
 4. rollout  SwimmerEnv, 4096 environments x 500 steps, 64-64 policy,
             stochastic: every leaf finite, one kernel launch per step.
 5. train    the Swimmer main path through the entry points a user calls:
@@ -85,7 +89,9 @@ def emit(obj):
 
 
 def time_ms(fn, reps):
-    """Mean milliseconds of ``fn`` over ``reps`` calls, by CUDA events."""
+    """Mean milliseconds of ``fn`` over ``reps`` calls made from Python, by
+    CUDA events: the device's time only while the host enqueues faster
+    than the device runs."""
     fn()
     torch.cuda.synchronize()
     e0 = torch.cuda.Event(enable_timing=True)
@@ -96,6 +102,28 @@ def time_ms(fn, reps):
     e1.record()
     torch.cuda.synchronize()
     return e0.elapsed_time(e1) / reps
+
+
+def graph_ms(fn, reps, replays=5):
+    """Mean device milliseconds per call of ``fn``: ``reps`` calls captured
+    into one CUDA graph, the graph replayed ``replays`` times between two
+    CUDA events, so the host's cost of a call stays out."""
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(replays):
+        g.replay()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / (reps * replays)
 
 
 class _OpCounter(torch.utils._python_dispatch.TorchDispatchMode):
@@ -133,6 +161,56 @@ def count_component_ops(fn):
     with _OpCounter() as c:
         fn()
     return sum(c.counts.values())
+
+
+def solve_ops(nv, first=0, last=0):
+    """Scalar operations of one solve with a Cholesky factor, in component
+    form, whose right-hand side is an exact zero above row ``first`` and of
+    whose result only rows >= ``last`` are read: the forward pass starts at
+    ``first`` and the back-substitution stops at ``last``, as in K1's
+    chol_solve (first = last = 0: the plain version's solve)."""
+    one = torch.ones(1, dtype=torch.float64)
+
+    def solve():
+        y, out = {}, {}
+        for i in range(first, nv):
+            s = one
+            for k in range(first, i):
+                s = s - one * y[k]
+            y[i] = s / one
+        for i in reversed(range(last, nv)):
+            s = y.get(i, one)
+            for k in range(i + 1, nv):
+                s = s - one * out[k]
+            out[i] = s / one
+    return count_component_ops(solve)
+
+
+def count_kernel_ops(p, n):
+    """Scalar operations per environment of one control step (n substeps)
+    of K1's algorithm at L = 1: the plain version's count less the work the
+    kernel leaves out, plus the reciprocals it takes.  Per substep it leaves
+    out the products with exact zeros (the rows of each unit column of M^-1
+    before its unit entry; the back-substitution rows below the smallest
+    limited dof in the limit dual's solves, a0 and the columns; avp's
+    rotation sums, 2 per chain entry), the impedance ramp's other branch
+    (counted as the longer one, 1 - x, / (1 - mid), ** power, (1 - mid) *,
+    1 -: 5 operations, so the count errs low) and the Gauss-Seidel divisor's
+    sum in every sweep after the first; it takes one reciprocal per Cholesky
+    pivot and per Gauss-Seidel divisor.  -> (kernel count, plain count)."""
+    plain, _ = count_plain_ops(p, n)
+    nv = p.nv
+    lim = [d for d in range(nv) if p.limited[d]]
+    factorizations = 2 if any(p.damping) else 1
+    per_substep = 2 * int(sum(map(sum, planar.chain_mask(p)))) \
+        - factorizations * nv
+    if lim:
+        full = solve_ops(nv)
+        per_substep += (full - solve_ops(nv, 0, lim[0])
+                        + sum(full - solve_ops(nv, d, lim[0]) for d in lim)
+                        + 5 * len(lim) + (planar.PGS_SWEEPS - 1) * len(lim)
+                        - len(lim))
+    return plain - n * per_substep, plain
 
 
 def count_contact_ops(p, n):
@@ -173,6 +251,21 @@ def count_contact_ops(p, n):
         total += evals * 6 * nv
     return total, {"rows": C, "smooth": smooth, "row_assembly": rows,
                    "evaluations": evals}
+
+
+def swimmer_test_states(B, seed):
+    """Half random states (q in U(-.5,.5), v, u in U(-1,1)), half
+    limit-active (hinges pushed 0.1..0.5 rad past the +-1.5 stops, moving
+    into the stop).  All states lie off the limit boundary, where kernel
+    and plain version could legitimately take different branches."""
+    rng = np.random.RandomState(seed)
+    q = rng.uniform(-0.5, 0.5, (B, 7))
+    v = rng.uniform(-1.0, 1.0, (B, 7))
+    u = rng.uniform(-1.0, 1.0, (B, 4))
+    h = B // 2
+    q[:h, 3:] = rng.uniform(1.6, 2.0, (h, 4)) * rng.choice([-1, 1], (h, 4))
+    v[:h, 3:] = np.sign(q[:h, 3:]) * np.abs(v[:h, 3:])
+    return q, v, u
 
 
 def contact_test_states(p, qpos0, B, seed):
@@ -234,21 +327,6 @@ def cheetah_explosion_states():
                  for k in ("qpos", "qvel", "action"))
 
 
-def swimmer_test_states(B, seed):
-    """Half random states (q in U(-.5,.5), v, u in U(-1,1)), half
-    limit-active (hinges pushed 0.1..0.5 rad past the +-1.5 stops, moving
-    into the stop).  All states lie off the limit boundary, where kernel
-    and plain version could legitimately take different branches."""
-    rng = np.random.RandomState(seed)
-    q = rng.uniform(-0.5, 0.5, (B, 7))
-    v = rng.uniform(-1.0, 1.0, (B, 7))
-    u = rng.uniform(-1.0, 1.0, (B, 4))
-    h = B // 2
-    q[:h, 3:] = rng.uniform(1.6, 2.0, (h, 4)) * rng.choice([-1, 1], (h, 4))
-    v[:h, 3:] = np.sign(q[:h, 3:]) * np.abs(v[:h, 3:])
-    return q, v, u
-
-
 # ---------------------------------------------------------------------------
 
 def phase_device():
@@ -264,12 +342,10 @@ def phase_device():
 
 
 def phase_build(models):
-    """models: name -> PlanarParams.  One nvcc per library (per model, and
-    per lane-group size for the contact kernel), started together ->
-    {model: {lanes: ptxas figures}} of the contact models."""
+    """models: name -> PlanarParams.  One nvcc per library (per model and
+    lane-group size), started together -> {model: {lanes: ptxas figures}}."""
     items = [(name, p, L) for name, p in models.items()
-             for L in (cuda_planar.LANES
-                       if cuda_planar.kernel_name(p) == CONTACT else (None,))]
+             for L in cuda_planar.kernel_lanes(p)]
     t0 = time.time()
     infos = cuda_planar.build_kernels([(p, L) for _, p, L in items])
     built = {}
@@ -277,17 +353,21 @@ def phase_build(models):
         built.setdefault(name, {
             "kernel": cuda_planar.kernel_name(p),
             "source": cuda_planar.kernel_source(cuda_planar.kernel_name(p)),
-            "builds": {}})["builds"][str(L or 1)] = {
+            "builds": {}})["builds"][str(L)] = {
                 "nvcc_seconds": info["build_seconds"], "ptxas": info["ptxas"]}
     emit({"phase": "build", "seconds": time.time() - t0, "models": built,
           "headers": ["mjrl_tpu_torch/csrc/planar_body.cuh",
                       "mjrl_tpu_torch/csrc/planar_contact.cuh"]})
     return {name: {L: b["ptxas"] for L, b in m["builds"].items()}
-            for name, m in built.items() if m["kernel"] == CONTACT}
+            for name, m in built.items()}
 
 
-def phase_kernels(p, smi):
+def phase_kernels(p, smi, ptxas):
+    """The smooth kernel (K1) for the swimmer at every L against the plain
+    version, then timed; ptxas: its figures by L from the build phase."""
     dev = torch.device("cuda")
+    lanes_all = cuda_planar.kernel_lanes(p)
+    lanes = cuda_planar.default_lanes(p)
     checks = []
     worst = 0.0
     for B in (NUM_ENVS, 1000):
@@ -296,47 +376,80 @@ def phase_kernels(p, smi):
                                     (torch.float32, 2e-5, 2e-4)):
             tq, tv, tu = (torch.tensor(a, dtype=dtype, device=dev)
                           for a in (q, v, u))
-            gq, gv = cuda_planar.cuda_step_n_batched(p, tq, tv, tu,
-                                                     FRAME_SKIP)
-            torch.cuda.synchronize()
             rq, rv = step_n_arrays(p, tq, tv, tu, FRAME_SKIP)
-            if not (torch.isfinite(gq).all() and torch.isfinite(gv).all()):
-                raise AssertionError("kernel output not finite")
-            torch.testing.assert_close(gq, rq, rtol=tol_q, atol=tol_q)
-            torch.testing.assert_close(gv, rv, rtol=tol_v, atol=tol_v)
-            eq = (gq - rq).abs().max().item()
-            ev = (gv - rv).abs().max().item()
-            checks.append({"B": B, "dtype": str(dtype).split(".")[-1],
-                           "max_abs_err_q": eq, "max_abs_err_v": ev,
-                           "rtol_atol_q": tol_q, "rtol_atol_v": tol_v})
-            if dtype == torch.float32:
-                worst = max(worst, eq, ev)
+            for L in lanes_all:
+                gq, gv = cuda_planar.cuda_step_n_batched(
+                    p, tq, tv, tu, FRAME_SKIP, lanes=L)
+                torch.cuda.synchronize()
+                if not (torch.isfinite(gq).all() and torch.isfinite(gv).all()):
+                    raise AssertionError(f"kernel, {L} lanes: output not "
+                                         "finite")
+                torch.testing.assert_close(gq, rq, rtol=tol_q, atol=tol_q,
+                                           msg=lambda m: f"{L} lanes, q: {m}")
+                torch.testing.assert_close(gv, rv, rtol=tol_v, atol=tol_v,
+                                           msg=lambda m: f"{L} lanes, v: {m}")
+                eq = (gq - rq).abs().max().item()
+                ev = (gv - rv).abs().max().item()
+                checks.append({"B": B, "lanes": L,
+                               "dtype": str(dtype).split(".")[-1],
+                               "max_abs_err_q": eq, "max_abs_err_v": ev,
+                               "rtol_atol_q": tol_q, "rtol_atol_v": tol_v})
+                if dtype == torch.float32 and L == lanes:
+                    worst = max(worst, eq, ev)
 
-    # times at the main path's shape: float32, 4096 environments, n = 5
+    # the kernel computes the impedance's pow(t, 2) as t * t; the plain
+    # version's t ** 2.0 must be the same on the card
+    pow2 = {}
+    for dtype in (torch.float32, torch.float64):
+        t = torch.tensor(swimmer_test_states(NUM_ENVS, seed=3)[0],
+                         dtype=dtype, device=dev)
+        pow2[str(dtype).split(".")[-1]] = bool(torch.equal(t ** 2.0, t * t))
+    if not all(pow2.values()):
+        raise AssertionError(f"t ** 2.0 differs from t * t: {pow2}")
+
+    # times at the main path's shape: 4096 environments, n = 5, every L in
+    # turns, float32 (the main path's type) and float64
     q, v, u = swimmer_test_states(NUM_ENVS, seed=1)
+    by_lanes = {}
+    for dtype in (torch.float32, torch.float64):
+        tq, tv, tu = (torch.tensor(a, dtype=dtype, device=dev)
+                      for a in (q, v, u))
+        by_lanes[str(dtype).split(".")[-1]] = time_lanes(
+            p, tq, tv, tu, FRAME_SKIP, 200)
     tq, tv, tu = (torch.tensor(a, dtype=torch.float32, device=dev)
                   for a in (q, v, u))
-    ms = time_ms(lambda: cuda_planar.cuda_step_n_batched(
-        p, tq, tv, tu, FRAME_SKIP), 200)
+    ms, ms_lanes1 = by_lanes["float32"][lanes], by_lanes["float32"][1]
+    # what a caller that launches one kernel at a time from Python sees:
+    # the wrapper's host cost per call is larger than this kernel's time
+    host_loop = time_lanes(p, tq, tv, tu, FRAME_SKIP, 200, timer=time_ms)
     plain_ms = time_ms(lambda: step_n_arrays(p, tq, tv, tu, FRAME_SKIP), 3)
-    tq64, tv64, tu64 = tq.double(), tv.double(), tu.double()
-    ms_f64 = time_ms(lambda: cuda_planar.cuda_step_n_batched(
-        p, tq64, tv64, tu64, FRAME_SKIP), 200)
 
-    ops_per_env, by_name = count_plain_ops(p, FRAME_SKIP)
+    ops_per_env, ops_plain = count_kernel_ops(p, FRAME_SKIP)
     nbytes = NUM_ENVS * (4 * p.nv + len(p.actuators)) * 4
     bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
     ops_ms = NUM_ENVS * ops_per_env / PEAK_FP32_PER_S * 1e3
+    bound_ms = max(bytes_ms, ops_ms)
     return {
         "name": SMOOTH, "route": "cuda",
         "source": cuda_planar.kernel_source(SMOOTH),
         "replaces": "mjrl_tpu/ops/pallas_planar.py:85",
         "launches": None,                    # filled in from the train phase
         "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_ms": bound_ms,
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": None,   # no single PyTorch call computes this function
-        "ms_float64": ms_f64, "ops_per_env_step": ops_per_env,
+        "lanes": lanes, "ms_lanes1": ms_lanes1,
+        "speedup_vs_lanes1": ms_lanes1 / ms,
+        "roofline_share": bound_ms / ms,
+        "roofline_share_lanes1": bound_ms / ms_lanes1,
+        "ms_by_lanes": by_lanes, "ms_host_loop": host_loop[lanes],
+        "ms_host_loop_by_lanes": host_loop,
+        "pow2_is_square": pow2,
+        "ptxas": ptxas,
+        "ms_float64": by_lanes["float64"][lanes],
+        # the kernel's algorithm (count_kernel_ops), and the plain version's
+        # count, which includes the products with exact zeros it skips
+        "ops_per_env_step": ops_per_env, "ops_plain": ops_plain,
         "bytes": nbytes, "bytes_ms": bytes_ms, "ops_ms": ops_ms,
         "shape": {"B": NUM_ENVS, "nv": p.nv, "nu": len(p.actuators),
                   "n": FRAME_SKIP, "dtype": "float32"},
@@ -369,14 +482,16 @@ def check_contact_kernel(p, q, v, u, n, dtype):
     return errs
 
 
-def time_lanes(p, tq, tv, tu, n, reps):
-    """Milliseconds per launch of every lane-group size on the same inputs,
-    in turns (L = 1, the others, the others again, L = 1) -> {lanes: mean
-    of its two readings}."""
-    rest = list(cuda_planar.LANES[1:])
-    readings = {L: [] for L in cuda_planar.LANES}
+def time_lanes(p, tq, tv, tu, n, reps, timer=graph_ms):
+    """Milliseconds per launch of every lane-group size of ``p``'s kernel on
+    the same inputs, in turns (L = 1, the others, the others again, L = 1)
+    -> {lanes: mean of its two readings}.  By default the device's time per
+    launch (``graph_ms``: the calls replayed as a CUDA graph, the wrapper's
+    host cost left out)."""
+    rest = list(cuda_planar.kernel_lanes(p)[1:])
+    readings = {L: [] for L in cuda_planar.kernel_lanes(p)}
     for L in [1] + rest + rest[::-1] + [1]:
-        readings[L].append(time_ms(lambda: cuda_planar.cuda_step_n_batched(
+        readings[L].append(timer(lambda: cuda_planar.cuda_step_n_batched(
             p, tq, tv, tu, n, lanes=L), reps))
     return {L: sum(r) / len(r) for L, r in readings.items()}
 
@@ -422,15 +537,16 @@ def phase_kernels_contact(envs, smi, ptxas):
                   for a in (q, v, u))
     by_lanes = time_lanes(p, tq, tv, tu, n, 20)
     ms, ms_lanes1 = by_lanes[lanes], by_lanes[1]
+    host_loop = time_lanes(p, tq, tv, tu, n, 20, timer=time_ms)
     plain_ms = time_ms(lambda: step_n_arrays(p, tq, tv, tu, n), 2)
     tq64, tv64, tu64 = tq.double(), tv.double(), tu.double()
-    ms_f64 = time_ms(lambda: cuda_planar.cuda_step_n_batched(
+    ms_f64 = graph_ms(lambda: cuda_planar.cuda_step_n_batched(
         p, tq64, tv64, tu64, n), 10)
     # the work is fixed; is the time?  the same launch on states that are
     # all in contact at moderate velocity
     dq, dv, du = (torch.tensor(a, dtype=torch.float32, device=dev)
                   for a in dropped_states(p, env.model.qpos0, NUM_ENVS, 2))
-    ms_dropped = time_ms(lambda: cuda_planar.cuda_step_n_batched(
+    ms_dropped = graph_ms(lambda: cuda_planar.cuda_step_n_batched(
         p, dq, dv, du, n), 10)
     ops_per_env, parts = count_contact_ops(p, n)
     nbytes = NUM_ENVS * (4 * p.nv + len(p.actuators)) * 4
@@ -450,6 +566,8 @@ def phase_kernels_contact(envs, smi, ptxas):
         "speedup_vs_lanes1": ms_lanes1 / ms,
         "roofline_share": bound_ms / ms,
         "roofline_share_lanes1": bound_ms / ms_lanes1,
+        "ms_host_loop": host_loop[lanes],
+        "ms_host_loop_by_lanes": host_loop,
         "ms_by_lanes": {"hopper_main_path_float32": by_lanes,
                         "float32_B4096": times, "float64_B4096": times64},
         "default_lanes": {k: cuda_planar.default_lanes(e._planar)
@@ -615,8 +733,9 @@ def main():
         ptxas = phase_build({"swimmer": p, **{k: e._planar
                                               for k, e in contact_envs.items()}})
         phase = "kernels"
-        kernel = phase_kernels(p, smi)
-        contact = phase_kernels_contact(contact_envs, smi, ptxas)
+        kernel = phase_kernels(p, smi, ptxas["swimmer"])
+        contact = phase_kernels_contact(
+            contact_envs, smi, {k: ptxas[k] for k in contact_envs})
         phase = "rollout"
         phase_rollout(kernel["ms"])
         phase = "train"

@@ -149,25 +149,6 @@ PLANAR_HD void seg_closest(T a0x, T a0y, T a1x, T a1y, T b0x, T b0y, T b1x,
   dist = sqrt_((dx * dx + dy * dy) + T(1e-18));
 }
 
-// Sum of x over the L lanes of this lane's group, with the same bits on
-// every lane (xor butterfly: lane l adds x_l + x_{l^o}, its partner
-// x_{l^o} + x_l).  Every lane of the warp must call it: no data-dependent
-// branch may hold a call.  The host build runs L = 1, where it is x; the
-// host harness planar_host_lanes.cpp runs the lanes as fibers and does the
-// same butterfly through memory.
-template <int L, typename T>
-PLANAR_HD T group_sum(T x) {
-#if defined(__CUDA_ARCH__)
-  PLANAR_UNROLL
-  for (int o = L / 2; o > 0; o >>= 1) {
-    x = x + __shfl_xor_sync(0xffffffffu, x, o);
-  }
-#elif defined(PLANAR_HOST_LANES)
-  x = planar_host_lanes::exchange_sum<L>(x);
-#endif
-  return x;
-}
-
 // This lane's share of the dual problem of one acceleration evaluation:
 // its rows of J and M^-1 J^T, their reference accelerations, regularizers,
 // active flags and scales, slot by slot; per triple group j (slots 3j..3j+2)

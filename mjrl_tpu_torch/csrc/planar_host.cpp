@@ -3,8 +3,8 @@
 // and steps a batch of environments in a plain loop, so the kernels'
 // arithmetic can be held against the plain PyTorch version without a GPU
 // (tests/test_torch_kernel_host.py).  The model picks the body, as the
-// wrapper picks the kernel; the contact body runs one lane per environment
-// (L = 1), where its group reductions are the identity.  Same C interface
+// wrapper picks the kernel; both run one lane per environment (L = 1),
+// where their group reductions are the identity.  Same C interface
 // as the .cu files, minus the stream.
 
 #include "planar_model.cuh"
@@ -27,7 +27,9 @@ void step_batch(const T* qpos, const T* qvel, const T* ctrl, T* qout,
     if (PlanarModel::CONTACT_PATH) {
       planar::contact_step_n<T, PlanarModel, 1>(q, v, u, n, 0);
     } else {
-      for (int s = 0; s < n; ++s) planar::substep<T, PlanarModel>(q, v, u);
+      for (int s = 0; s < n; ++s) {
+        planar::substep<T, PlanarModel, 1>(q, v, u, 0);
+      }
     }
     for (int d = 0; d < NV; ++d) {
       qout[env * NV + d] = q[d];

@@ -1,14 +1,15 @@
-// Host harness for the contact body at L > 1 lanes per environment: the L
+// Host harness for the kernel bodies at L > 1 lanes per environment (the
+// smooth body at L = 2, 4, 8; the contact body at L = 8, 16, 32): the L
 // lanes of a group are L fibers (ucontext) on one thread, and group_sum's
 // xor butterfly is done step by step as the warp shuffles do it — every lane
 // posts its value, the lanes take turns, every lane reads its partner's
 // (lane ^ o), the lanes take turns again, every lane adds.  Built with g++
 // next to the generated planar_model.cuh (mjrl_tpu_torch/ops/cuda_planar.py::
-// load_host_body), so the lane-group code — row ownership, triple groups,
-// the group reductions and the rule that every lane of a group ends with the
-// same bits — is tested where there is no GPU
-// (tests/test_torch_kernel_host.py).  One thread, fixed turns: the run does
-// not depend on how the machine schedules threads.
+// load_host_body), so the lane-group code — the split of work over the
+// lanes, row ownership, triple groups, the group reductions and the rule
+// that every lane of a group ends with the same bits — is tested where
+// there is no GPU (tests/test_torch_kernel_host.py).  One thread, fixed
+// turns: the run does not depend on how the machine schedules threads.
 
 #include <ucontext.h>
 
@@ -99,7 +100,13 @@ void run_lane() {
     v[d] = jb.v[d];
   }
   for (int i = 0; i < NU; ++i) u[i] = jb.u[i];
-  planar::contact_step_n<T, PlanarModel, L>(q, v, u, jb.n, lane);
+  if constexpr (PlanarModel::CONTACT_PATH) {
+    planar::contact_step_n<T, PlanarModel, L>(q, v, u, jb.n, lane);
+  } else {
+    for (int s = 0; s < jb.n; ++s) {
+      planar::substep<T, PlanarModel, L>(q, v, u, lane);
+    }
+  }
   for (int d = 0; d < NV; ++d) {
     jb.out[lane][d] = q[d];
     jb.out[lane][NV + d] = v[d];
@@ -157,11 +164,20 @@ int step_batch(const T* qpos, const T* qvel, const T* ctrl, T* qout,
 template <typename T>
 int step_lanes(const T* qpos, const T* qvel, const T* ctrl, T* qout,
                T* vout, int B, int n, int lanes) {
-  switch (lanes) {
-    case 8: return step_batch<T, 8>(qpos, qvel, ctrl, qout, vout, B, n);
-    case 16: return step_batch<T, 16>(qpos, qvel, ctrl, qout, vout, B, n);
-    case 32: return step_batch<T, 32>(qpos, qvel, ctrl, qout, vout, B, n);
-    default: return -2;
+  if constexpr (PlanarModel::CONTACT_PATH) {
+    switch (lanes) {
+      case 8: return step_batch<T, 8>(qpos, qvel, ctrl, qout, vout, B, n);
+      case 16: return step_batch<T, 16>(qpos, qvel, ctrl, qout, vout, B, n);
+      case 32: return step_batch<T, 32>(qpos, qvel, ctrl, qout, vout, B, n);
+      default: return -2;
+    }
+  } else {
+    switch (lanes) {
+      case 2: return step_batch<T, 2>(qpos, qvel, ctrl, qout, vout, B, n);
+      case 4: return step_batch<T, 4>(qpos, qvel, ctrl, qout, vout, B, n);
+      case 8: return step_batch<T, 8>(qpos, qvel, ctrl, qout, vout, B, n);
+      default: return -2;
+    }
   }
 }
 

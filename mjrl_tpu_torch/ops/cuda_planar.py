@@ -18,15 +18,16 @@ the lanes of a group (``lane_layout``) and every physical constant as
 ``constexpr`` — into the build directory, so the model's structure unrolls
 at compile time, as the Pallas kernel bakes its constants at trace time.
 
-The contact kernel steps each environment on a group of ``L`` lanes of a
-warp (``L`` in ``LANES``, fixed per build); ``default_lanes`` picks each
-model's ``L`` from measurements on an H100 (``PERF.md``).
+Both kernels step each environment on a group of ``L`` lanes of a warp,
+``L`` fixed per build: ``SMOOTH_LANES`` for the smooth kernel, ``LANES`` for
+the contact kernel (``kernel_lanes``); ``default_lanes`` picks each model's
+``L`` from measurements on an H100 (``PERF.md``).
 
 Build: ``nvcc`` for ``sm_90a`` into a shared library with a plain C
 interface, loaded with ``ctypes``; at first use, from ``csrc/`` alone, into
-``mjrl_tpu_torch/_build/<hash>/``, one library per model (and per ``L`` for
-the contact kernel).  Importing this module needs neither CUDA
-nor ``nvcc``; asking for a kernel without them raises.
+``mjrl_tpu_torch/_build/<hash>/``, one library per model and ``L``.
+Importing this module needs neither CUDA nor ``nvcc``; asking for a kernel
+without them raises.
 
 ``cuda_step_n_batched`` is the one entry: for CUDA tensors it launches the
 kernel the model needs (``needs_contact_path``) and raises if it cannot; for
@@ -77,8 +78,10 @@ def reset_launch_counts():
         launch_counts[name] = 0
 
 
-# lane-group sizes the contact kernel is built for (each divides 32)
+# lane-group sizes the kernels are built for (each divides 32): the contact
+# kernel's, and the smooth kernel's
 LANES = (1, 8, 16, 32)
+SMOOTH_LANES = (1, 2, 4, 8)
 
 # the contact kernel's lanes per environment, by model (nv, constraint rows):
 # the fastest of LANES on an H100 at 4096 environments, in float32 and in
@@ -90,10 +93,27 @@ CHOSEN_LANES = {
 }
 
 
+# the smooth kernel's lanes per environment, by model (nv, bodies, limited
+# dofs): the fastest of SMOOTH_LANES on an H100 at 4096 environments, in
+# float32 and in float64 (chip_smoke.py, PERF.md section 6)
+CHOSEN_SMOOTH_LANES = {
+    (7, 5, 4): 1,    # Swimmer
+}
+
+
 def default_lanes(p: PlanarParams) -> int:
-    """Lanes per environment of the contact kernel for ``p``: the measured
-    choice for the gym models, 8 (every measured model's) for another."""
+    """Lanes per environment of the kernel that steps ``p``: the measured
+    choice for the swimmer and the gym models; for another model, the
+    measured models' choice (smooth 1, contact 8)."""
+    if kernel_name(p) == "planar_step_smooth":
+        return CHOSEN_SMOOTH_LANES.get(
+            (p.nv, p.nbody, sum(1 for x in p.limited if x)), 1)
     return CHOSEN_LANES.get((p.nv, n_planar_rows(p)), 8)
+
+
+def kernel_lanes(p: PlanarParams):
+    """The lane-group sizes the kernel that steps ``p`` is built for."""
+    return SMOOTH_LANES if kernel_name(p) == "planar_step_smooth" else LANES
 
 
 def kernel_name(p: PlanarParams) -> str:
@@ -223,6 +243,10 @@ def emit_model_header(p: PlanarParams) -> str:
         return [d0, dw, max(width, 1e-12),
                 min(max(mid, 1e-4), 1.0 - 1e-4), power]
 
+    def solimp_inv(si):          # 1 / width, 1 / mid, 1 / (1 - mid)
+        _, _, width, mid, _ = solimp_row(si)
+        return [1.0 / width, 1.0 / mid, 1.0 / (1.0 - mid)]
+
     pts, ccs = p.contacts_pt, p.contacts_cc
     shared = _shared_contacts(p)
     con_row, con_tri, tri_mu, soc_start = _row_layout(p)
@@ -230,6 +254,7 @@ def emit_model_header(p: PlanarParams) -> str:
     nrows = soc_start + 3 * ntri
     layouts = [lane_layout(p, L) for L in LANES]
 
+    pairs = [(d, e) for d in range(nv) for e in range(d, nv)]
     flat2 = lambda rows: [x for r in rows for x in r]
     out = ["// generated by mjrl_tpu_torch/ops/cuda_planar.py::"
            "emit_model_header — do not edit\n#pragma once\n"
@@ -239,6 +264,8 @@ def emit_model_header(p: PlanarParams) -> str:
            "struct PlanarModel {\n"
            f"  static constexpr int NV = {nv}, NB = {nb}, NU = {nu}, "
            f"NL = {len(lim)};\n"
+           "  // the smallest limited dof (0 without limits)\n"
+           f"  static constexpr int LIM_DOF_MIN = {min(lim, default=0)};\n"
            f"  static constexpr int PGS_SWEEPS = {PGS_SWEEPS};\n"
            f"  static constexpr int NPT = {len(pts)}, NCC = {len(ccs)}, "
            f"NROWS = {nrows}, NTRI = {ntri}, SOC_START = {soc_start};\n"
@@ -294,6 +321,11 @@ def emit_model_header(p: PlanarParams) -> str:
           (len(lim),)),
         A("solimp", "double", flat2([solimp_row(p.solimp[d]) for d in lim]),
           (len(lim), 5)),
+        A("solimp_inv", "double",
+          flat2([solimp_inv(p.solimp[d]) for d in lim]), (len(lim), 3)),
+        # the upper triangle of an nv x nv matrix, entry by entry, row-major
+        A("pair_row", "int", [d for d, _ in pairs], (len(pairs),)),
+        A("pair_col", "int", [e for _, e in pairs], (len(pairs),)),
         A("act_dof", "int", [a[0] for a in p.actuators], (nu,)),
         A("gear", "double", [a[1] for a in p.actuators], (nu,)),
         A("ctrl_lo", "double", [a[2] for a in p.actuators], (nu,)),
@@ -416,28 +448,25 @@ def _parse_ptxas(log: str):
 
 
 def _lanes_for(p: PlanarParams, lanes):
-    """The lane-group size a build or launch of ``p``'s kernel uses: None
-    for the smooth kernel (one thread per environment), else ``lanes`` or
-    the model's default."""
-    if kernel_name(p) != "planar_step_contact":
-        if lanes not in (None, 1):
-            raise ValueError("the smooth kernel runs one thread per "
-                             "environment")
-        return None
+    """The lane-group size a build or launch of ``p``'s kernel uses:
+    ``lanes``, or the model's default for None; raises for a size the
+    kernel is not built for."""
     if lanes is None:
         return default_lanes(p)
-    if lanes not in LANES:
-        raise ValueError(f"lanes must be one of {LANES}, got {lanes}")
+    allowed = kernel_lanes(p)
+    if lanes not in allowed:
+        raise ValueError(f"{kernel_name(p)}: lanes must be one of {allowed},"
+                         f" got {lanes}")
     return int(lanes)
 
 
 def build_kernel(p: PlanarParams, lanes=None):
-    """Build (or find built) the CUDA library for ``p`` (and ``lanes`` per
-    environment for the contact kernel; None: the model's default) ->
-    (lib path, info dict with build seconds and ptxas figures)."""
+    """Build (or find built) the CUDA library for ``p`` at ``lanes`` per
+    environment (None: the model's default) -> (lib path, info dict with
+    build seconds and ptxas figures)."""
     source, headers, _ = KERNELS[kernel_name(p)]
     lanes = _lanes_for(p, lanes)
-    defines = [] if lanes is None else [f"-DPLANAR_LANES={lanes}"]
+    defines = [f"-DPLANAR_LANES={lanes}"]
     header = emit_model_header(p)
     bdir = _build_dir_for(header + " ".join(defines), (source,) + headers)
     so = os.path.join(bdir, "libplanar_step.so")
@@ -489,7 +518,7 @@ def _load_kernel(p: PlanarParams, lanes):
         lib.planar_model_dims(dims)
         if tuple(dims)[:3] != (p.nv, p.nbody, len(p.actuators)):
             raise RuntimeError("kernel library built for another model")
-        if lanes is not None and dims[4] != lanes:
+        if dims[4] != lanes:
             raise RuntimeError(f"kernel library built for {dims[4]} lanes, "
                                f"not {lanes}")
         hit = _libs[key] = (fns, info)
@@ -505,16 +534,15 @@ def load_host_body(p: PlanarParams, lanes: int = 1):
     """The kernel body compiled with g++ for the host -> ctypes lib.  For
     tests: lets the kernel's arithmetic be checked where there is no GPU.
     ``lanes`` 1: ``csrc/planar_host.cpp``, one thread per environment
-    (``planar_host_step_f32/_f64``); 8, 16 or 32: the contact body with the
-    lanes of a group as fibers, ``csrc/planar_host_lanes.cpp``
-    (``planar_host_lanes_step_f32/_f64``)."""
+    (``planar_host_step_f32/_f64``); another of ``kernel_lanes(p)``: the
+    body with the lanes of a group as fibers, ``csrc/planar_host_lanes.cpp``
+    (``planar_host_lanes_step_f32/_f64``, one library for every ``L``)."""
     lib = _host_libs.get((p, lanes))
     if lib is None:
         gxx = shutil.which("g++")
         if gxx is None:
             raise RuntimeError("g++ not found")
-        if lanes != 1 and (lanes not in LANES
-                           or kernel_name(p) != "planar_step_contact"):
+        if lanes not in kernel_lanes(p):
             raise ValueError(f"no host harness for {lanes} lanes of "
                              f"{kernel_name(p)}")
         source, prefix = (("planar_host.cpp", "planar_host_step")
@@ -585,7 +613,7 @@ def cuda_step_n_batched(p: PlanarParams, qpos, qvel, ctrl, n: int,
     CUDA tensors: one launch of the hand-written kernel the model needs
     (smooth, or contact / RK4) on the current stream, no synchronisation;
     anything the kernel does not take raises.  ``lanes``: lanes per
-    environment of the contact kernel (one of ``LANES``; None: the model's
+    environment (one of ``kernel_lanes(p)``; None: the model's
     ``default_lanes``).  CPU tensors: the plain PyTorch version."""
     lanes = _lanes_for(p, lanes)
     if qpos.device.type == "cpu":

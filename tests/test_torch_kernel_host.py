@@ -6,12 +6,17 @@ kernels as ``__host__ __device__`` templates.  Here they are compiled with
 g++ behind ``csrc/planar_host.cpp`` and held to the plain PyTorch version
 ``physics.planar.step_n_arrays``.
 
-Smooth kernel, on random, limit-active and golden swimmer states: float64
-at rtol = atol = 1e-10 (same operations in the same order; the compiler may
-contract a*b+c), float32 at 2e-5 (positions) and 2e-4 (velocities) — the
-bounds the JAX package holds its own kernel to, which leave room for
-last-digit differences amplified by the Cholesky factorization and 12
-Gauss-Seidel sweeps.
+Smooth kernel, on random, limit-active and golden swimmer states, at every
+lane-group size it is built for (L = 1 through ``csrc/planar_host.cpp``;
+L = 2, 4, 8 with the lanes of a group run as fibers and the group sums done
+as the warp's xor butterfly, ``csrc/planar_host_lanes.cpp``, where the lanes
+of a group must end with the same bits): float64 at rtol = atol = 1e-10
+(the same operations, except that each reciprocal is taken once, products
+with exact zeros are skipped and at L > 1 the bodies' forces are summed per
+lane and then over the group; the compiler may contract a*b+c), float32 at
+2e-5 (positions) and 2e-4 (velocities) — the bounds the JAX package holds
+its own kernel to, which leave room for last-digit differences amplified by
+the Cholesky factorization and 12 Gauss-Seidel sweeps.
 
 Contact kernel, on resting, penetrating and limit-violating states of
 Hopper, Walker2d and HalfCheetah and on the captured half-cheetah explosion
@@ -181,13 +186,17 @@ def host_lib(params):
     return cuda_planar.load_host_body(params)
 
 
+@pytest.mark.parametrize("lanes", cuda_planar.SMOOTH_LANES)
 @pytest.mark.parametrize("n", [1, 5])
 @pytest.mark.parametrize("dtype", [np.float64, np.float32],
                          ids=["float64", "float32"])
 @pytest.mark.parametrize("name", list(STATES))
-def test_host_body_matches_plain_version(params, host_lib, name, dtype, n):
+def test_host_body_matches_plain_version(params, host_lib, name, dtype, n,
+                                         lanes):
+    """At L > 1, host_step_n_batched also raises unless every lane of a
+    group ends with the same bits."""
     q, v, u = (np.ascontiguousarray(a, dtype) for a in STATES[name]())
-    gq, gv = cuda_planar.host_step_n_batched(params, q, v, u, n)
+    gq, gv = cuda_planar.host_step_n_batched(params, q, v, u, n, lanes=lanes)
     rq, rv = tplanar.step_n_arrays(params, torch.tensor(q), torch.tensor(v),
                                    torch.tensor(u), n)
     assert gq.dtype == dtype and gq.shape == q.shape
@@ -351,13 +360,16 @@ def test_host_body_zero_substeps_is_identity(params, host_lib):
     assert np.array_equal(gq, q) and np.array_equal(gv, v)
 
 
-def test_host_body_carries_nan_like_the_plain_version(params, host_lib):
+@pytest.mark.parametrize("lanes", cuda_planar.SMOOTH_LANES)
+def test_host_body_carries_nan_like_the_plain_version(params, host_lib,
+                                                      lanes):
     """A non-finite state comes out non-finite from both, so the env's
     divergence rescue sees the same rows."""
     q, v, u = (np.ascontiguousarray(a[:4]) for a in STATES["random"]())
     v[1, 3] = np.nan
     q[2, 4] = np.inf
-    gq, gv = cuda_planar.host_step_n_batched(params, q, v, u, 5)
+    gq, gv = cuda_planar.host_step_n_batched(params, q, v, u, 5,
+                                             lanes=lanes)
     rq, rv = tplanar.step_n_arrays(params, torch.tensor(q), torch.tensor(v),
                                    torch.tensor(u), 5)
     bad = ~(np.isfinite(gq).all(-1) & np.isfinite(gv).all(-1))
@@ -367,20 +379,25 @@ def test_host_body_carries_nan_like_the_plain_version(params, host_lib):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("lanes", cuda_planar.SMOOTH_LANES)
 @pytest.mark.parametrize("B", [4096, 1000])
-def test_cuda_kernel_matches_plain_version_on_the_card(params, B):
-    """The kernel itself, on a GPU: float64 at 1e-9, float32 at 2e-5 /
+def test_cuda_kernel_matches_plain_version_on_the_card(params, B, lanes):
+    """The kernel itself, on a GPU, at each lane-group size built, on the
+    random and limit-active states: float64 at 1e-9, float32 at 2e-5 /
     2e-4, and one launch counted per call."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU and nvcc")
-    reps = -(-B // 60)
-    q, v, u = (np.tile(a, (reps, 1))[:B] for a in STATES["limit_active"]())
+    reps = -(-B // 120)
+    q, v, u = (np.tile(np.concatenate([a, b]), (reps, 1))[:B]
+               for a, b in zip(STATES["random"](),
+                               STATES["limit_active"]()))
     for dtype, tq, tv in ((torch.float64, 1e-9, 1e-9),
                           (torch.float32, 2e-5, 2e-4)):
         a, b, c = (torch.tensor(x, dtype=dtype, device="cuda")
                    for x in (q, v, u))
         before = dict(cuda_planar.launch_counts)
-        gq, gv = cuda_planar.cuda_step_n_batched(params, a, b, c, 5)
+        gq, gv = cuda_planar.cuda_step_n_batched(params, a, b, c, 5,
+                                                 lanes=lanes)
         torch.cuda.synchronize()
         before["planar_step_smooth"] += 1
         assert cuda_planar.launch_counts == before

@@ -94,18 +94,29 @@ def test_wrapper_takes_plain_version_for_cpu_tensors(params):
 
 
 def test_wrapper_lanes_argument(params):
-    """The contact kernel's lanes per environment: the measured choice (8)
-    by default, one of LANES when given; the smooth kernel takes none.
-    A value no kernel is built for raises, on CPU tensors too."""
+    """Lanes per environment: each kernel takes its own lane-group sizes
+    (the smooth kernel SMOOTH_LANES, the contact kernel LANES), the
+    measured choice by default (swimmer 1, contact models 8), and refuses a
+    size it is not built for, on CPU tensors too; CPU tensors get the plain
+    version at every size."""
     _, pt = params
     rk4 = pt._replace(integrator=RK4)
+    assert cuda_planar.SMOOTH_LANES == (1, 2, 4, 8)
+    assert cuda_planar.kernel_lanes(pt) == cuda_planar.SMOOTH_LANES
+    assert cuda_planar.kernel_lanes(rk4) == cuda_planar.LANES
     assert cuda_planar.default_lanes(rk4) == 8
+    assert cuda_planar.default_lanes(pt) == 1
+    # a smooth model with no measured entry gets the stated default
+    assert cuda_planar.default_lanes(pt._replace(nbody=6)) == 1
     q, v, u = (torch.tensor(a) for a in random_states(2))
-    for p, lanes in ((rk4, 3), (rk4, 64), (pt, 8)):
-        with pytest.raises(ValueError, match="lanes|one thread"):
+    for p, lanes in ((rk4, 3), (rk4, 64), (rk4, 2), (pt, 16), (pt, 3),
+                     (pt, 32)):
+        with pytest.raises(ValueError, match="lanes must be one of"):
             cuda_planar.cuda_step_n_batched(p, q, v, u, 1, lanes=lanes)
-    gq, _ = cuda_planar.cuda_step_n_batched(pt, q, v, u, 1, lanes=1)
-    assert torch.equal(gq, tplanar.step_n_arrays(pt, q, v, u, 1)[0])
+    plain = tplanar.step_n_arrays(pt, q, v, u, 1)
+    for lanes in (None,) + cuda_planar.SMOOTH_LANES:
+        gq, gv = cuda_planar.cuda_step_n_batched(pt, q, v, u, 1, lanes=lanes)
+        assert torch.equal(gq, plain[0]) and torch.equal(gv, plain[1])
 
 
 def test_float32_plain_version_close_to_float64(params):
