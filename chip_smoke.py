@@ -35,12 +35,31 @@ non-zero with the phase's name:
 7. train_hopper    the Hopper-v3 main path, same entry points, 3 iterations
             of 4096 trajectories x 1000 steps; 3000 launches of the contact
             kernel and none of the smooth one.
+8. train_job_hopper_npg   the repo's examples/example_configs/hopper_npg.json
+            through examples/torch_policy_opt_job_script.py (MLP 32-32
+            policy, MLPBaseline 128-128, 10 000 samples per iteration) with
+            autoreset set in memory, 3 iterations: num_samples equal to the
+            10 x 1000 grid, KL within the guard, 3000 contact launches.
+9. train_job_swimmer_ppo  swimmer_ppo.json the same way (PPO, MLPBaseline,
+            10 x 500), 3 iterations: 1500 smooth launches.
+10. train_hopper_trpo     TRPO (kl_dist 0.01) with a QuadraticBaseline on
+            Hopper-v3 at 4096 x 1000 with autoreset, 3 iterations: KL under
+            kl_dist, every grid cell a sample, 3000 contact launches.
+11. bc_swimmer  demos from the PPO phase's policy (10 x 500), BC with the MSE
+            loss and the data's transforms, 5 epochs, then an evaluation
+            rollout: 1000 smooth launches, the loss falls.
+12. autoreset_card  an autoreset Hopper rollout (64 x 20, float64, injected
+            noise and fresh states) on the card against the same rollout on
+            the CPU (the contact kernel's plain version).
 
-The last line is {"ok": true, "device": {...}}.
+Each phase's launches are counted from just before it to just after.  The
+last line is {"ok": true, "device": {...}}.
 """
 
 import contextlib
+import importlib.util
 import json
+import math
 import os
 import subprocess
 import sys
@@ -51,8 +70,9 @@ import traceback
 import numpy as np
 import torch
 
-from mjrl_tpu_torch.algos import NPG
-from mjrl_tpu_torch.baselines import LinearBaseline
+from mjrl_tpu_torch import convert
+from mjrl_tpu_torch.algos import BC, NPG, TRPO
+from mjrl_tpu_torch.baselines import LinearBaseline, QuadraticBaseline
 from mjrl_tpu_torch.device import make_generator
 from mjrl_tpu_torch.envs import GymEnv
 from mjrl_tpu_torch.envs.gym_suite import (HalfCheetahEnv, HopperEnv,
@@ -62,7 +82,7 @@ from mjrl_tpu_torch.models.policies import MLP
 from mjrl_tpu_torch.ops import cuda_planar
 from mjrl_tpu_torch.physics import planar
 from mjrl_tpu_torch.physics.planar import step_n_arrays
-from mjrl_tpu_torch.samplers.rollout import rollout_batch
+from mjrl_tpu_torch.samplers.rollout import rollout_batch, sample_paths
 from mjrl_tpu_torch.utils.train_agent import train_agent
 
 # published peaks of one H100 SXM (NVIDIA data sheet): the roofline bound
@@ -75,6 +95,8 @@ HORIZON = 500
 FRAME_SKIP = 5
 NITER = 3
 HOPPER_HORIZON = 1000
+HERE = os.path.dirname(os.path.abspath(__file__))
+EXAMPLES = os.path.join(HERE, "examples")
 SMOOTH, CONTACT = "planar_step_smooth", "planar_step_contact"
 # contact kernel vs plain version, float32: the bounds of the JAX package's
 # own float32 check of this branch (positions 3e-4; velocities 3e-3, here
@@ -317,8 +339,7 @@ def dropped_states(p, qpos0, B, seed):
 def cheetah_explosion_states():
     """The captured high-velocity half-cheetah states of tests/golden (the
     one that had already exploded when it was captured is left out)."""
-    here = os.path.dirname(os.path.abspath(__file__))
-    d = np.load(os.path.join(here, "tests", "golden",
+    d = np.load(os.path.join(HERE, "tests", "golden",
                              "cheetah_explosion_states.npz"))
     ts = [t for t in sorted(int(k[2:]) for k in d.files
                             if k.startswith("t_"))
@@ -657,16 +678,18 @@ def phase_rollout_hopper(kernel_ms):
         raise AssertionError("terminated disagrees with the mask")
     if float((batch["rewards"] * (1 - mask)).abs().sum()) != 0.0:
         raise AssertionError("rewards after the end of an episode")
+    valid_per_s = float(mask.sum()) / seconds
     emit({"phase": "rollout_hopper", "num_envs": NUM_ENVS,
           "horizon": HOPPER_HORIZON, "seconds": seconds,
           "control_steps_per_s": NUM_ENVS * HOPPER_HORIZON / seconds,
-          "valid_steps": int(mask.sum()),
+          "valid_steps": int(mask.sum()), "valid_samples_per_s": valid_per_s,
           "kernel_launches": launches[CONTACT],
           "kernel_share_of_rollout": launches[CONTACT] * kernel_ms * 1e-3
           / seconds,
           "terminated": n_term,
           "mean_episode_length": lengths.mean().item(),
           "mean_return": (batch["rewards"] * mask).sum(1).mean().item()})
+    return valid_per_s
 
 
 def phase_train(env_id, step_size, horizon, kernel, phase):
@@ -698,9 +721,7 @@ def phase_train(env_id, step_size, horizon, kernel, phase):
             f"training launched {counts}, expected {NITER * horizon} of "
             f"{kernel} only")
     log = agent.logger.log
-    for k, vals in log.items():
-        if len(vals) != NITER or not np.all(np.isfinite(vals)):
-            raise AssertionError(f"logged {k} missing or not finite: {vals}")
+    check_log(log, phase)
     if not np.all(np.isfinite(policy.get_param_values())):
         raise AssertionError("policy parameters not finite")
     kl_cap = agent.kl_guard * agent.n_step_size / 2
@@ -718,6 +739,255 @@ def phase_train(env_id, step_size, horizon, kernel, phase):
           "surr_improvement": log["surr_improvement"],
           "stoc_pol_mean": log["stoc_pol_mean"]})
     return counts[kernel]
+
+
+def job_script():
+    """The port's job script, examples/torch_policy_opt_job_script.py."""
+    spec = importlib.util.spec_from_file_location(
+        "torch_policy_opt_job_script",
+        os.path.join(EXAMPLES, "torch_policy_opt_job_script.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def check_log(log, phase):
+    for k, vals in log.items():
+        if len(vals) != NITER or not np.all(np.isfinite(vals)):
+            raise AssertionError(f"{phase}: logged {k} missing or not "
+                                 f"finite: {vals}")
+
+
+def run_counted(fn):
+    """fn() with every launch count set to 0 just before and read just
+    after -> (fn's result, counts, seconds)."""
+    torch.cuda.synchronize()
+    cuda_planar.reset_launch_counts()
+    t0 = time.time()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, dict(cuda_planar.launch_counts), time.time() - t0
+
+
+def phase_train_job(config, kernel, horizon, phase, overrides):
+    """A config of examples/example_configs through the port's job script,
+    as a user runs it (``main``), 3 iterations -> (agent, launches)."""
+    script = job_script()
+    cfg_path = os.path.join(EXAMPLES, "example_configs", config)
+    with tempfile.TemporaryDirectory() as tmp:
+        job = os.path.join(tmp, phase)
+        argv = ["--output", job, "--config", cfg_path, "--set",
+                f"rl_num_iter={NITER}", *overrides]
+        with contextlib.redirect_stdout(sys.stderr):
+            agent, counts, seconds = run_counted(lambda: script.main(argv))
+        for f in ("job_config.json", "results.txt",
+                  os.path.join("iterations", "checkpoint_final.pickle"),
+                  os.path.join("iterations", "baseline_final.pickle")):
+            if not os.path.exists(os.path.join(job, f)):
+                raise AssertionError(f"{phase}: the job script did not "
+                                     f"write {f}")
+    other = SMOOTH if kernel == CONTACT else CONTACT
+    want = {kernel: NITER * horizon, other: 0}
+    if counts != want:
+        raise AssertionError(f"{phase}: launched {counts}, expected {want}")
+    if agent.device.type != "cuda" or agent.baseline.device.type != "cuda":
+        raise AssertionError(f"{phase}: the agent is not on the card")
+    log = agent.logger.log
+    check_log(log, phase)
+    if not np.all(np.isfinite(agent.policy.get_param_values())):
+        raise AssertionError(f"{phase}: policy parameters not finite")
+    bl = agent.baseline.cfg
+    return agent, counts, seconds, \
+        bl.epochs * (log["num_samples"][0] // bl.batch_size)
+
+
+def phase_train_job_hopper_npg():
+    agent, counts, seconds, vf_steps = phase_train_job(
+        "hopper_npg.json", CONTACT, HOPPER_HORIZON, "train_job_hopper_npg",
+        ['alg_hyper_params={"autoreset": True}'])
+    log = agent.logger.log
+    grid = math.ceil(10000 / HOPPER_HORIZON) * HOPPER_HORIZON
+    if not agent.autoreset or log["num_samples"] != [grid] * NITER:
+        raise AssertionError(f"num_samples {log['num_samples']}, expected "
+                             f"the grid, {grid}, in every iteration")
+    kl_cap = agent.kl_guard * agent.n_step_size / 2
+    if not all(kl <= kl_cap * (1 + 1e-6) for kl in log["kl_dist"]):
+        raise AssertionError(f"kl_dist {log['kl_dist']} above {kl_cap}")
+    emit({"phase": "train_job_hopper_npg", "config": "hopper_npg.json",
+          "autoreset": True, "iterations": NITER, "seconds": seconds,
+          "kernel_launches": counts, "num_samples": log["num_samples"],
+          "num_episodes": log["num_episodes"],
+          "time_sampling": log["time_sampling"], "time_npg": log["time_npg"],
+          "time_VF": log["time_VF"], "vf_adam_steps": vf_steps,
+          "vf_us_per_adam_step": [t / vf_steps * 1e6
+                                  for t in log["time_VF"]],
+          "kl_dist": log["kl_dist"], "VF_error_after": log["VF_error_after"],
+          "stoc_pol_mean": log["stoc_pol_mean"]})
+    return counts[CONTACT]
+
+
+def phase_train_job_swimmer_ppo():
+    agent, counts, seconds, vf_steps = phase_train_job(
+        "swimmer_ppo.json", SMOOTH, HORIZON, "train_job_swimmer_ppo", [])
+    log = agent.logger.log
+    if type(agent).__name__ != "PPO" or agent.clip_coef != 0.2 \
+            or agent.epochs != 10 or agent.mb_size != 64 \
+            or agent.learn_rate != 5e-4:
+        raise AssertionError("swimmer_ppo.json did not build its PPO")
+    if log["num_samples"] != [10 * HORIZON] * NITER:
+        raise AssertionError(f"num_samples {log['num_samples']}")
+    adam = agent.opt_state["count"]
+    if adam != NITER * 10 * (10 * HORIZON // 64):
+        raise AssertionError(f"{adam} PPO Adam steps")
+    emit({"phase": "train_job_swimmer_ppo", "config": "swimmer_ppo.json",
+          "iterations": NITER, "seconds": seconds, "kernel_launches": counts,
+          "num_samples": log["num_samples"],
+          "time_sampling": log["time_sampling"], "t_opt": log["t_opt"],
+          "ppo_adam_steps_per_iteration": adam // NITER,
+          "ppo_us_per_adam_step": [t / (adam // NITER) * 1e6
+                                   for t in log["t_opt"]],
+          "time_VF": log["time_VF"], "vf_adam_steps": vf_steps,
+          "vf_us_per_adam_step": [t / vf_steps * 1e6
+                                  for t in log["time_VF"]],
+          "kl_dist": log["kl_dist"], "stoc_pol_mean": log["stoc_pol_mean"]})
+    return agent, counts[SMOOTH]
+
+
+def phase_train_hopper_trpo(fixed_grid_valid_per_s):
+    e = GymEnv("Hopper-v3")
+    policy = MLP(e.spec, hidden_sizes=(64, 64))
+    baseline = QuadraticBaseline(e.spec)
+    agent = TRPO(e, policy, baseline, kl_dist=0.01, save_logs=True,
+                 autoreset=True)
+    if baseline.cfg.num_features() != 82:
+        raise AssertionError("QuadraticBaseline of 11 obs is not 82 wide")
+    with tempfile.TemporaryDirectory() as tmp:
+        job = os.path.join(tmp, "train_hopper_trpo")
+        with contextlib.redirect_stdout(sys.stderr):
+            _, counts, seconds = run_counted(lambda: train_agent(
+                job, agent, seed=0, niter=NITER, num_traj=NUM_ENVS,
+                gamma=0.995, gae_lambda=0.97, save_freq=10))
+    want = {CONTACT: NITER * HOPPER_HORIZON, SMOOTH: 0}
+    if counts != want:
+        raise AssertionError(f"TRPO launched {counts}, expected {want}")
+    log = agent.logger.log
+    check_log(log, "train_hopper_trpo")
+    grid = NUM_ENVS * HOPPER_HORIZON
+    if log["num_samples"] != [grid] * NITER:
+        raise AssertionError(f"num_samples {log['num_samples']} short of "
+                             f"the grid {grid}")
+    if not all(kl < 0.01 for kl in log["kl_dist"]):
+        raise AssertionError(f"kl_dist {log['kl_dist']} not under 0.01")
+    steps_per_s = [grid / t for t in log["time_sampling"]]
+    emit({"phase": "train_hopper_trpo", "env": "Hopper-v3",
+          "num_traj": NUM_ENVS, "horizon": HOPPER_HORIZON,
+          "autoreset": True, "baseline": "QuadraticBaseline, 82 features",
+          "iterations": NITER, "seconds": seconds, "kernel_launches": counts,
+          "num_samples": log["num_samples"],
+          "num_episodes": log["num_episodes"],
+          "line_search_steps": log["line_search_steps"],
+          "kl_dist": log["kl_dist"], "alpha": log["alpha"],
+          "time_sampling": log["time_sampling"], "time_npg": log["time_npg"],
+          "time_VF": log["time_VF"],
+          "control_steps_per_s": steps_per_s,
+          "valid_samples_per_s": steps_per_s,
+          "fixed_grid_valid_samples_per_s": fixed_grid_valid_per_s,
+          "VF_error_after": log["VF_error_after"],
+          "stoc_pol_mean": log["stoc_pol_mean"]})
+    return counts[CONTACT]
+
+
+def phase_bc_swimmer(expert):
+    e = GymEnv("mjrl_swimmer-v0")
+    policy = MLP(e.spec, hidden_sizes=(32, 32), seed=500)
+
+    def run():
+        demos = sample_paths(10, e, expert, base_seed=1)
+        bc = BC(demos, policy, epochs=5, batch_size=64, lr=1e-3,
+                loss_type="MSE", set_transforms=True)
+        bc.train()
+        ev = sample_paths(10, e, policy, eval_mode=True, base_seed=2)
+        return demos, bc, ev
+
+    (demos, bc, ev), counts, seconds = run_counted(run)
+    want = {SMOOTH: 2 * HORIZON, CONTACT: 0}
+    if counts != want:
+        raise AssertionError(f"BC launched {counts}, expected {want}")
+    n = sum(len(p["observations"]) for p in demos)
+    log = bc.logger.log
+    before, after = log["loss_before"][-1], log["loss_after"][-1]
+    returns = [float(np.sum(p["rewards"])) for p in ev]
+    if n != 10 * HORIZON or not np.isfinite(after) or not after < before \
+            or not np.all(np.isfinite(returns)):
+        raise AssertionError(f"BC: {n} demo steps, loss {before} -> {after}, "
+                             f"returns {returns}")
+    emit({"phase": "bc_swimmer", "demo_steps": n, "seconds": seconds,
+          "kernel_launches": counts, "adam_steps": bc.opt_state["count"],
+          "loss_before": before, "loss_after": after, "time_fit": log["time"],
+          "eval_mean_return": float(np.mean(returns)),
+          "expert_mean_return": float(np.mean([np.sum(p["rewards"])
+                                               for p in demos]))})
+    return counts[SMOOTH]
+
+
+def phase_autoreset_card():
+    """The autoreset Hopper rollout on the card (K2) against the same
+    rollout on the CPU (K2's plain version), float64, same noise and fresh
+    states: a third of the starts and fresh states tilted past the healthy
+    range's edge, so rows hold several episodes."""
+    B, T = 64, 20
+    rng = np.random.RandomState(17)
+    devices = ("cuda", "cpu")
+    envs = [HopperEnv(dtype=torch.float64, device=d) for d in devices]
+    qpos0 = envs[1].model.qpos0
+
+    def starts(*lead):
+        q = np.tile(qpos0, lead + (1,)) + rng.uniform(-5e-3, 5e-3,
+                                                      lead + (6,))
+        v = rng.uniform(-5e-3, 5e-3, lead + (6,))
+        tilt = rng.uniform(size=lead) < 1.0 / 3.0
+        q[..., 2] = np.where(tilt, 0.19, q[..., 2])
+        v[..., 2] = np.where(tilt, 1.5, v[..., 2])
+        return q, v
+
+    q0, v0 = starts(B)
+    resets = starts(T, B)
+    noise = rng.normal(size=(T, B, 3))
+    spec = envs[1].spec
+    params = convert.params_to_numpy(MLP(
+        spec, hidden_sizes=(64, 64), seed=3, dtype=torch.float64,
+        device="cpu").params)
+    out = []
+    for d, env in zip(devices, envs):
+        policy = convert.policy_params_from_numpy(
+            MLP(spec, hidden_sizes=(64, 64), dtype=torch.float64, device=d),
+            params)
+        out.append(run_counted(lambda: rollout_batch(
+            env, policy.config, policy.params, policy.transforms, None, B,
+            horizon=T, autoreset=True,
+            state0=env.state_from_qpos_qvel(q0, v0),
+            noise=torch.tensor(noise, device=d),
+            resets=tuple(torch.tensor(a, device=d) for a in resets))))
+    (gpu, counts, seconds), (cpu, _, _) = out
+    if counts != {CONTACT: T, SMOOTH: 0}:
+        raise AssertionError(f"autoreset rollout launched {counts}")
+    tol = CONTACT_TOL[torch.float64][0]
+    errs = {}
+    for k in ("observations", "actions", "rewards", "last_obs"):
+        torch.testing.assert_close(gpu[k].cpu(), cpu[k], rtol=tol, atol=tol,
+                                   msg=lambda m: f"{k}: {m}")
+        errs[k] = (gpu[k].cpu() - cpu[k]).abs().max().item()
+    if not torch.equal(gpu["dones"].cpu(), cpu["dones"]):
+        raise AssertionError("dones differ between the card and the CPU")
+    n_done = int(cpu["dones"].sum())
+    if n_done == 0 or float(cpu["dones"].sum(1).max()) < 2:
+        raise AssertionError(f"{n_done} episode ends: the grid does not "
+                             "restart episodes")
+    emit({"phase": "autoreset_card", "B": B, "horizon": T,
+          "dtype": "float64", "kernel_launches": counts,
+          "episode_ends": n_done, "max_abs_err": errs, "rtol_atol": tol,
+          "seconds": seconds})
+    return counts[CONTACT]
 
 
 def main():
@@ -742,10 +1012,25 @@ def main():
         kernel["launches"] = phase_train("mjrl_swimmer-v0", 0.1, HORIZON,
                                          SMOOTH, "train")
         phase = "rollout_hopper"
-        phase_rollout_hopper(contact["ms"])
+        valid_per_s = phase_rollout_hopper(contact["ms"])
         phase = "train_hopper"
         contact["launches"] = phase_train("Hopper-v3", 0.05, HOPPER_HORIZON,
                                           CONTACT, "train_hopper")
+        # the later slices' paths, each counted on its own
+        kernel["launches_by_path"] = {"train": kernel["launches"]}
+        contact["launches_by_path"] = {"train_hopper": contact["launches"]}
+        phase = "train_job_hopper_npg"
+        contact["launches_by_path"][phase] = phase_train_job_hopper_npg()
+        phase = "train_job_swimmer_ppo"
+        expert, kernel["launches_by_path"][phase] = \
+            phase_train_job_swimmer_ppo()
+        phase = "train_hopper_trpo"
+        contact["launches_by_path"][phase] = phase_train_hopper_trpo(
+            valid_per_s)
+        phase = "bc_swimmer"
+        kernel["launches_by_path"][phase] = phase_bc_swimmer(expert.policy)
+        phase = "autoreset_card"
+        contact["launches_by_path"][phase] = phase_autoreset_card()
     except Exception:
         traceback.print_exc()
         print(f"chip_smoke: phase '{phase}' failed", file=sys.stderr)

@@ -13,6 +13,12 @@ num_cpu, env_kwargs) -> [mean, std, min, max, N]``;
 ``train_from_paths(paths)`` for externally collected paths; running-score
 EMA 0.9/0.1; advantage whitening with 1e-6; optional KL-targeted
 step-halving line search.
+
+``autoreset=True`` rolls out with episodes reset inside the rollout, so
+every grid cell is a sample; processing then takes the done-aware return /
+GAE scans.  Subclasses with a persistent optimizer (PPO) set
+``_has_opt_state`` and keep ``self.opt_state``; their ``_update_core``
+takes and returns it.
 """
 
 import time as timer
@@ -22,7 +28,9 @@ import torch
 
 from mjrl_tpu_torch.algos import functional as F
 from mjrl_tpu_torch.device import make_generator, resolve_device
+from mjrl_tpu_torch.ops.flat import tree_to
 from mjrl_tpu_torch.ops.gae import (discounted_returns, gae_advantages,
+                                    gae_with_dones, returns_with_dones,
                                     whiten)
 from mjrl_tpu_torch.samplers.rollout import (num_traj_for_samples,
                                              rollout_batch)
@@ -63,15 +71,16 @@ class BatchREINFORCE:
         if kwargs.get("mesh", None) is not None:
             raise NotImplementedError(
                 "sharded training is not ported (ROADMAP.md M11)")
-        if kwargs.get("autoreset", False):
-            raise NotImplementedError(
-                "autoreset rollouts are not ported (ROADMAP.md queue 1)")
+        self.autoreset = bool(kwargs.get("autoreset", False))
+        self._has_opt_state = False
 
-    # -- pickling: the generator travels as its state ---------------------
+    # -- pickling: the generator travels as its state, tensors on the CPU --
     def __getstate__(self):
         state = self.__dict__.copy()
         state["generator"] = self.generator.get_state()
         state["device"] = str(self.device)
+        if "opt_state" in state:
+            state["opt_state"] = tree_to(self.opt_state, "cpu")
         return state
 
     def __setstate__(self, state):
@@ -81,6 +90,8 @@ class BatchREINFORCE:
         if dev.type == "cuda" and not torch.cuda.is_available():
             dev = torch.device("cpu")
         self.device = dev
+        if "opt_state" in state:
+            self.opt_state = tree_to(self.opt_state, dev)
         self.generator = torch.Generator(device=dev)
         try:
             self.generator.set_state(gen_state)
@@ -101,14 +112,34 @@ class BatchREINFORCE:
         pol = self.policy.config
         bl = self.baseline.cfg
 
+        autoreset = self.autoreset
+
         def rollout_fn(params, transforms, generator):
             return rollout_batch(fenv, pol, params, transforms, generator,
-                                 num_traj=num_traj, horizon=T)
+                                 num_traj=num_traj, horizon=T,
+                                 autoreset=autoreset)
 
         @torch.no_grad()
         def process(bl_state, batch):
             rewards = batch["rewards"]
             mask = batch["mask"]
+            if "dones" in batch:         # an autoreset grid: all valid
+                dones = batch["dones"]
+                returns = returns_with_dones(rewards, dones, gamma)
+                obs_ext = torch.cat([batch["observations"],
+                                     batch["last_obs"][:, None]], dim=1)
+                values_ext = bl.predict(bl_state, obs_ext)
+                values, v_last = values_ext[:, :-1], values_ext[:, -1]
+                if gae_lambda is None or gae_lambda < 0 or gae_lambda > 1:
+                    adv = returns - values
+                else:
+                    adv = gae_with_dones(rewards, values, dones, v_last,
+                                         gamma, gae_lambda)
+                adv_flat = whiten(adv.reshape(-1))
+                # per-episode mean return: total reward / episode count
+                n_eps = torch.clamp(torch.sum(dones, dim=1), min=1.0)
+                path_returns = torch.sum(rewards, dim=1) / n_eps
+                return returns, adv_flat, path_returns
             returns = discounted_returns(rewards, gamma, mask)
             values = bl.predict(bl_state, batch["observations"])
             if gae_lambda is None or gae_lambda < 0 or gae_lambda > 1:
@@ -120,9 +151,7 @@ class BatchREINFORCE:
             path_returns = torch.sum(rewards * mask, dim=1)
             return returns, adv_flat, path_returns
 
-        @torch.no_grad()
-        def fit_fn(state, obs, returns, mask):
-            return bl.fit(state, obs, returns, mask)
+        fit_fn = torch.no_grad()(self.baseline.fit_state)
 
         return rollout_fn, process, self._update_core, fit_fn
 
@@ -193,6 +222,10 @@ class BatchREINFORCE:
         eval_statistics.append(N)
         if self.save_logs:
             self.logger.log_kv("num_samples", int(batch["mask"].sum()))
+            if "dones" in batch:     # episodes ended + truncated row tails
+                d = batch["dones"]
+                self.logger.log_kv("num_episodes", int(d.sum())
+                                   + int((d[:, -1] == 0).sum()))
 
         # phase 3: baseline fit on fresh returns
         ts = timer.time()
@@ -219,9 +252,14 @@ class BatchREINFORCE:
         act = batch["actions"].reshape(-1, batch["actions"].shape[-1])
         mask = batch["mask"].reshape(-1)
 
-        new_params, stats = update_fn(self.policy.params,
-                                      self.policy.transforms, obs, act,
-                                      adv_flat, mask, self.generator)
+        if self._has_opt_state:
+            new_params, stats, self.opt_state = update_fn(
+                self.policy.params, self.policy.transforms, obs, act,
+                adv_flat, mask, self.generator, self.opt_state)
+        else:
+            new_params, stats = update_fn(self.policy.params,
+                                          self.policy.transforms, obs, act,
+                                          adv_flat, mask, self.generator)
         # install new params (new and old copies, clamped)
         self.policy.old_params = {k: v.detach().clone()
                                   for k, v in new_params.items()}

@@ -5,14 +5,18 @@
 Thin stateful wrappers over the functional cores in
 ``mjrl_tpu_torch.models.baselines``; agents reach through ``.cfg`` /
 ``.state`` to run the fit inside their training step.  The state lives on
-the baseline's device; pickles hold CPU tensors.
+the baseline's device; pickles hold CPU tensors.  ``MLPBaseline`` owns a
+``torch.Generator`` (``needs_key``), seeded from ``seed``, that draws its
+initial weights and every fit's permutations; an agent passes it to the
+fit it runs.
 """
 
 import numpy as np
 import torch
 
-from mjrl_tpu_torch.device import resolve_device
+from mjrl_tpu_torch.device import make_generator, resolve_device
 from mjrl_tpu_torch.models import baselines as fb
+from mjrl_tpu_torch.ops.flat import tree_to
 
 
 def _paths_to_batch(paths, dtype=torch.float32, device=None):
@@ -40,32 +44,54 @@ def _paths_to_batch(paths, dtype=torch.float32, device=None):
 class _HostBaseline:
     needs_key = False
 
-    def __init__(self, cfg, dtype=torch.float32, device=None):
+    def __init__(self, cfg, dtype=torch.float32, device=None, seed=None):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dtype = dtype
-        self.state = cfg.init(dtype=dtype, device=self.device)
+        if self.needs_key:
+            self.seed = int(seed)
+            self.generator = make_generator(self.seed, self.device)
+            self.state = cfg.init(self.generator, dtype=dtype,
+                                  device=self.device)
+        else:
+            self.state = cfg.init(dtype=dtype, device=self.device)
 
     def __getstate__(self):
         state = self.__dict__.copy()
-        if torch.is_tensor(self.state):
-            state["state"] = self.state.detach().cpu()
+        state["state"] = tree_to(self.state, "cpu")
         state["device"] = str(self.device)
+        if self.needs_key:
+            state["generator"] = self.generator.get_state()
         return state
 
     def __setstate__(self, state):
+        gen_state = state.pop("generator", None)
         self.__dict__.update(state)
         dev = torch.device(self.device)
         if dev.type == "cuda" and not torch.cuda.is_available():
             dev = torch.device("cpu")
         self.device = dev
-        if torch.is_tensor(self.state):
-            self.state = self.state.to(dev)
+        self.state = tree_to(self.state, dev)
+        if gen_state is not None:
+            self.generator = torch.Generator(device=dev)
+            try:
+                self.generator.set_state(gen_state)
+            except RuntimeError:      # state saved by another device kind
+                self.generator.manual_seed(self.seed)
+
+    def fit_state(self, state, obs, returns, mask):
+        """The functional fit of ``state`` on batched tensors, with the
+        baseline's generator where it needs one -> (new state, e_before,
+        e_after); the baseline's own state is not changed."""
+        if self.needs_key:
+            return self.cfg.fit(state, obs, returns, mask,
+                                generator=self.generator)
+        return self.cfg.fit(state, obs, returns, mask)
 
     @torch.no_grad()
     def fit(self, paths, return_errors=False):
         obs, rets, mask = _paths_to_batch(paths, self.dtype, self.device)
-        self.state, e0, e1 = self.cfg.fit(self.state, obs, rets, mask)
+        self.state, e0, e1 = self.fit_state(self.state, obs, rets, mask)
         if return_errors:
             return float(e0), float(e1)
 
@@ -90,5 +116,23 @@ class LinearBaseline(_HostBaseline):
         super().__init__(cfg, dtype, device)
 
 
-QuadraticBaseline = fb.QuadraticBaseline
-MLPBaseline = fb.MLPBaseline
+class QuadraticBaseline(_HostBaseline):
+    def __init__(self, env_spec, inp_dim=None, inp="obs", reg_coeff=1e-3,
+                 dtype=torch.float32, device=None):
+        cfg = fb.QuadraticBaseline(inp_dim or env_spec.observation_dim,
+                                   reg_coeff=reg_coeff)
+        super().__init__(cfg, dtype, device)
+
+
+class MLPBaseline(_HostBaseline):
+    needs_key = True
+
+    def __init__(self, env_spec, inp_dim=None, inp="obs", learn_rate=1e-3,
+                 reg_coef=0.0, batch_size=64, epochs=1, use_gpu=False,
+                 hidden_sizes=(128, 128), seed=0, dtype=torch.float32,
+                 device=None):
+        cfg = fb.MLPBaseline(inp_dim or env_spec.observation_dim,
+                             hidden_sizes=tuple(hidden_sizes),
+                             learn_rate=learn_rate, reg_coef=reg_coef,
+                             batch_size=batch_size, epochs=epochs)
+        super().__init__(cfg, dtype, device, seed=seed)

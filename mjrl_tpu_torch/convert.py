@@ -4,25 +4,46 @@ the port's (no JAX import: everything crosses as numpy).
 The JAX policy pytree is ``{"layers": [{"w": (in, out), "b": (out,)}, ...],
 "log_std": (act,)}`` with a ``Transforms`` tuple (in_shift, in_scale,
 out_shift, out_scale); the port's parameters are ``nn.Linear``-shaped:
-``layers.<i>.weight`` is ``(out, in)`` — the transpose.
+``layers.<i>.weight`` is ``(out, in)`` — the transpose.  The JAX
+``MLPBaseline`` state is ``(layers, optax state)`` with ``layers`` in the same
+``init_mlp_params`` layout; only the layers cross (both Adam states start at
+zero).  Least-squares baselines (linear, quadratic) cross as their
+coefficient vector.
 """
 
 import numpy as np
 import torch
+
+from mjrl_tpu_torch.ops.adam import adam_init
 
 
 def _np(x):
     return x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
 
 
-def params_from_numpy(params, dtype=torch.float32, device=None):
-    """JAX-layout pytree (numpy leaves) -> the port's parameter dict."""
+def layers_from_numpy(layers, dtype=torch.float32, device=None):
+    """JAX ``init_mlp_params`` layer list ``[{"w": (in, out), "b": (out,)}]``
+    -> the port's ``{"layers.<i>.weight": (out, in), ...}``."""
     out = {}
-    for i, layer in enumerate(params["layers"]):
+    for i, layer in enumerate(layers):
         out[f"layers.{i}.weight"] = torch.as_tensor(
             np.asarray(layer["w"]).T.copy(), dtype=dtype, device=device)
         out[f"layers.{i}.bias"] = torch.as_tensor(
             np.asarray(layer["b"]), dtype=dtype, device=device)
+    return out
+
+
+def layers_to_numpy(params):
+    """The port's layer dict -> JAX layer list of float64 numpy arrays."""
+    n = sum(1 for k in params if k.endswith(".weight"))
+    return [{"w": _np(params[f"layers.{i}.weight"]).T.astype(np.float64),
+             "b": _np(params[f"layers.{i}.bias"]).astype(np.float64)}
+            for i in range(n)]
+
+
+def params_from_numpy(params, dtype=torch.float32, device=None):
+    """JAX-layout pytree (numpy leaves) -> the port's parameter dict."""
+    out = layers_from_numpy(params["layers"], dtype, device)
     out["log_std"] = torch.as_tensor(np.asarray(params["log_std"]),
                                      dtype=dtype, device=device)
     return out
@@ -31,14 +52,8 @@ def params_from_numpy(params, dtype=torch.float32, device=None):
 def params_to_numpy(params):
     """The port's parameter dict (or any dict shaped like it, e.g. a
     gradient) -> JAX-layout pytree of float64 numpy arrays."""
-    n = sum(1 for k in params if k.endswith(".weight"))
-    return {
-        "layers": [{"w": _np(params[f"layers.{i}.weight"]).T.astype(
-                        np.float64),
-                    "b": _np(params[f"layers.{i}.bias"]).astype(np.float64)}
-                   for i in range(n)],
-        "log_std": _np(params["log_std"]).astype(np.float64),
-    }
+    return {"layers": layers_to_numpy(params),
+            "log_std": _np(params["log_std"]).astype(np.float64)}
 
 
 def policy_params_from_numpy(policy, params, transforms=None):
@@ -62,8 +77,8 @@ def policy_params_to_numpy(policy):
 
 
 def linear_baseline_from_numpy(baseline, coeffs):
-    """Load least-squares coefficients (the JAX LinearBaseline state) into
-    a port ``LinearBaseline`` host object."""
+    """Load least-squares coefficients (the JAX LinearBaseline or
+    QuadraticBaseline state) into the port's host object of that kind."""
     baseline.state = torch.as_tensor(np.asarray(coeffs),
                                      dtype=baseline.dtype,
                                      device=baseline.device)
@@ -72,3 +87,17 @@ def linear_baseline_from_numpy(baseline, coeffs):
 
 def linear_baseline_to_numpy(baseline):
     return _np(baseline.state).astype(np.float64)
+
+
+
+def mlp_baseline_from_numpy(baseline, layers):
+    """Load the JAX MLPBaseline's layers (``state[0]``) into a port
+    ``MLPBaseline`` host object, with a fresh (zero) Adam state."""
+    params = layers_from_numpy(layers, baseline.dtype, baseline.device)
+    baseline.state = (params, adam_init(params))
+    return baseline
+
+
+def mlp_baseline_to_numpy(baseline):
+    """-> the port MLPBaseline's layers in the JAX layout."""
+    return layers_to_numpy(baseline.state[0])

@@ -1,23 +1,31 @@
-"""Value-function baselines: zero and linear least squares (counterpart of
-``mjrl_tpu/models/baselines.py``).
+"""Value-function baselines: zero, linear and quadratic least squares, and
+an MLP (counterpart of ``mjrl_tpu/models/baselines.py``).
 
-- Feature map: obs clipped to [-10, 10] and divided by 10; a 1.0 bias
-  column; time features (t/1000)^{1..4}.
-- Fit: regularized least squares on Monte-Carlo returns with the reg
-  coefficient multiplied by 10 on NaN, up to 10 attempts.
-- Errors reported as relative squared error sum(e^2)/sum(R^2).
+- Feature maps: obs clipped to [-10, 10] and divided by 10; a 1.0 bias
+  column (linear / quadratic only); time features (t/1000)^{1..4} of the
+  grid column.  Quadratic adds all pairwise products o_i * o_j, i <= j, in
+  ``torch.triu_indices`` order (row major, as ``jnp.triu_indices``).
+- Linear / quadratic fit: regularized least squares on Monte-Carlo returns
+  with the reg coefficient multiplied by 10 on NaN, up to 10 attempts.
+- MLP: ReLU MLP on [obs features, time features] -> scalar, fitted by
+  minibatch Adam (AdamW with ``reg_coef`` > 0) over ``epochs`` permutations
+  of the samples; the optimizer state persists across fits.
+- Errors reported as relative squared error sum(e^2)/sum(R^2) (the MLP adds
+  1e-8 to the denominator).
 
 Everything operates on batched fixed-shape paths — observations
 (N, T, obs_dim), returns (N, T), optional validity mask (N, T) — on the
 tensors' own device.
-
-``QuadraticBaseline`` and ``MLPBaseline`` are not ported yet
-(ROADMAP.md M6b).
 """
 
 from dataclasses import dataclass
+from typing import Tuple
 
 import torch
+
+from mjrl_tpu_torch.models.fc_network import (identity_transforms,
+                                              init_mlp_params, mlp_forward)
+from mjrl_tpu_torch.ops.adam import adam_copy, adam_init, adam_step_
 
 
 def time_features(T, dtype=torch.float32, device=None):
@@ -113,13 +121,102 @@ class LinearBaseline:
         return new_coeffs, e_before, e_after
 
 
-def _not_ported(name):
-    def ctor(*args, **kwargs):
-        raise NotImplementedError(
-            f"{name} is not ported yet (ROADMAP.md M6b)")
-    ctor.__name__ = name
-    return ctor
+@dataclass(frozen=True)
+class QuadraticBaseline:
+    obs_dim: int
+    reg_coeff: float = 1e-3
+
+    def num_features(self):
+        n = self.obs_dim
+        return int(n + n * (n + 1) // 2 + 1 + 4)
+
+    def features(self, obs):
+        """[o, o_i*o_j (i<=j), 1, t^1..t^4]."""
+        o = _clip_obs(obs)
+        iu, ju = torch.triu_indices(self.obs_dim, self.obs_dim,
+                                    device=obs.device)
+        quad = o[..., iu] * o[..., ju]
+        T = obs.shape[-2]
+        shape = obs.shape[:-1]
+        ones = torch.ones(shape + (1,), dtype=obs.dtype, device=obs.device)
+        tf = time_features(T, obs.dtype, obs.device).expand(shape + (4,))
+        return torch.cat([o, quad, ones, tf], dim=-1)
+
+    init = LinearBaseline.init
+    predict = LinearBaseline.predict
+    fit = LinearBaseline.fit
 
 
-QuadraticBaseline = _not_ported("QuadraticBaseline")
-MLPBaseline = _not_ported("MLPBaseline")
+@dataclass(frozen=True)
+class MLPBaseline:
+    """ReLU MLP on [obs features, time features] -> scalar value.  State =
+    (params, Adam state); the Adam state persists across fits."""
+    obs_dim: int
+    hidden_sizes: Tuple[int, ...] = (128, 128)
+    learn_rate: float = 1e-3
+    reg_coef: float = 0.0
+    batch_size: int = 64
+    epochs: int = 1
+
+    def num_features(self):
+        return self.obs_dim + 4
+
+    def features(self, obs):
+        o = _clip_obs(obs)
+        T = obs.shape[-2]
+        shape = obs.shape[:-1]
+        tf = time_features(T, obs.dtype, obs.device).expand(shape + (4,))
+        return torch.cat([o, tf], dim=-1)
+
+    def init(self, generator, dtype=torch.float32, device=None):
+        params = init_mlp_params(generator, self.num_features(), 1,
+                                 self.hidden_sizes, dtype, device)
+        return (params, adam_init(params))
+
+    def _forward(self, params, feats):
+        # float32 identity transforms, as the JAX package's: dividing by
+        # float32(1 + 1e-8) == 1.0 leaves every input exact in float64 too
+        tr = identity_transforms(self.num_features(), 1, torch.float32,
+                                 feats.device)
+        return mlp_forward(params, tr, feats, "relu")[..., 0]
+
+    def predict(self, state, obs):
+        return self._forward(state[0], self.features(obs))
+
+    def fit(self, state, obs, returns, mask=None, generator=None,
+            perms=None):
+        """Minibatch Adam over ``epochs`` permutations of the samples,
+        ``n_total // batch_size`` steps each (no last partial batch).  The
+        permutations come from ``generator``, or for tests ``perms``
+        (epochs, n_total).  -> ((params, adam state), e_before, e_after)."""
+        params, opt_state = state[0], adam_copy(state[1])
+        feats = self.features(obs).reshape(-1, self.num_features())
+        rets = returns.reshape(-1)
+        m = torch.ones_like(rets) if mask is None else mask.reshape(-1)
+        n_total = rets.shape[0]
+        bs = min(self.batch_size, n_total)
+        num_steps = max(n_total // bs, 1)
+        with torch.no_grad():
+            e_before = _masked_rel_error(self._forward(params, feats), rets,
+                                         m, eps=1e-8)
+        p = {k: v.detach().clone().requires_grad_(True)
+             for k, v in params.items()}
+        for e in range(self.epochs):
+            perm = perms[e] if perms is not None else torch.randperm(
+                n_total, generator=generator, device=generator.device)
+            batches = torch.as_tensor(perm, device=feats.device)[
+                :num_steps * bs].reshape(num_steps, bs)
+            for idx in batches:
+                bf, br, bm = feats[idx], rets[idx], m[idx]
+                with torch.enable_grad():
+                    pred = self._forward(p, bf)
+                    loss = torch.sum(bm * (pred - br) ** 2) / torch.clamp(
+                        torch.sum(bm), min=1.0)
+                    grads = torch.autograd.grad(loss, list(p.values()))
+                opt_state = adam_step_(p, dict(zip(p, grads)), opt_state,
+                                       self.learn_rate, self.reg_coef)
+        params = {k: v.detach() for k, v in p.items()}
+        with torch.no_grad():
+            e_after = _masked_rel_error(self._forward(params, feats), rets,
+                                        m, eps=1e-8)
+        return (params, opt_state), e_before, e_after

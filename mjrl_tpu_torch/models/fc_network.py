@@ -50,15 +50,37 @@ def make_transforms(in_dim, out_dim, in_shift=None, in_scale=None,
     )
 
 
+def _uniform(generator, shape, k, dtype):
+    """U(-k, k) of ``shape`` drawn from ``generator``, on its device."""
+    u = torch.rand(shape, generator=generator, dtype=dtype,
+                   device=generator.device)
+    return (u * 2.0 - 1.0) * k
+
+
 def init_linear_(linear, generator, scale=1.0):
     """nn.Linear default init, U(-k, k) with k = 1/sqrt(in_dim), drawn
     from ``generator`` (on the generator's device) in place."""
     k = 1.0 / math.sqrt(linear.in_features)
     with torch.no_grad():
         for p in (linear.weight, linear.bias):
-            u = torch.rand(p.shape, generator=generator, dtype=p.dtype,
-                           device=generator.device)
-            p.copy_(((u * 2.0 - 1.0) * (k * scale)).to(p.device))
+            p.copy_(_uniform(generator, p.shape, k * scale,
+                             p.dtype).to(p.device))
+
+
+def init_mlp_params(generator, in_dim, out_dim, hidden_sizes=(64, 64),
+                    dtype=torch.float32, device=None):
+    """A parameter dict ``{"layers.<i>.weight": (out, in), "layers.<i>.bias":
+    (out,)}`` with nn.Linear's default init (``init_linear_``'s draws, weight
+    then bias, layer by layer) from ``generator``."""
+    sizes = (in_dim,) + tuple(hidden_sizes) + (out_dim,)
+    params = {}
+    for i in range(len(sizes) - 1):
+        k = 1.0 / math.sqrt(sizes[i])
+        for name, shape in (("weight", (sizes[i + 1], sizes[i])),
+                            ("bias", (sizes[i + 1],))):
+            params[f"layers.{i}.{name}"] = _uniform(generator, shape, k,
+                                                    dtype).to(device)
+    return params
 
 
 def num_layers(params):

@@ -55,3 +55,15 @@ def tree_scale(a, alpha):
 
 def tree_zeros_like(a):
     return _map(torch.zeros_like, a)
+
+
+def tree_to(tree, device):
+    """Every tensor of a nested dict / list / tuple moved to ``device``
+    (detached); anything else is kept as it is.  Pickles hold CPU trees."""
+    if torch.is_tensor(tree):
+        return tree.detach().to(device)
+    if isinstance(tree, dict):
+        return {k: tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_to(v, device) for v in tree)
+    return tree

@@ -11,7 +11,9 @@ serve one path ``(T,)`` and a batch ``(N, T)``.  The reverse recurrence is
 a Python loop over T whose body is one elementwise op over the batch.
 
 The done-aware variants for autoreset grids (``returns_with_dones``,
-``gae_with_dones``) are not ported yet (ROADMAP.md queue 1).
+``gae_with_dones``) cut the chain wherever ``done`` is 1 (an episode's last
+step) and bootstrap the trailing, time-limit truncated episode with the
+value of the obs after the last step.
 """
 
 import torch
@@ -90,18 +92,38 @@ def gae_advantages(rewards, values, gamma, lam, terminated=False, mask=None):
 
 
 def returns_with_dones(rewards, dones, gamma):
-    raise NotImplementedError(
-        "autoreset grids are not ported (ROADMAP.md queue 1)")
+    """Per-step discounted returns over an autoreset grid: the discount
+    chain breaks at episode boundaries (done_t = 1 at each episode's last
+    step).  rewards / dones: (..., T)."""
+    T = rewards.shape[-1]
+    out = torch.empty_like(rewards)
+    carry = torch.zeros_like(rewards[..., 0])
+    for t in range(T - 1, -1, -1):
+        carry = rewards[..., t] + gamma * carry * (1.0 - dones[..., t])
+        out[..., t] = carry
+    return out
 
 
 def gae_with_dones(rewards, values, dones, v_last, gamma, lam):
-    raise NotImplementedError(
-        "autoreset grids are not ported (ROADMAP.md queue 1)")
+    """GAE over an autoreset grid.  v_last (...,) = V(obs after the last
+    step), the bootstrap of the trailing (time-limit truncated) episode;
+    terminal steps (done = 1) bootstrap 0."""
+    v_next = torch.cat([values[..., 1:], v_last[..., None]], dim=-1)
+    deltas = rewards + gamma * v_next * (1.0 - dones) - values
+    T = rewards.shape[-1]
+    out = torch.empty_like(rewards)
+    carry = torch.zeros_like(rewards[..., 0])
+    for t in range(T - 1, -1, -1):
+        carry = deltas[..., t] + gamma * lam * (1.0 - dones[..., t]) * carry
+        out[..., t] = carry
+    return out
 
 
 # Batched variants: the functions above already take a leading batch axis.
 batched_returns = discounted_returns
 batched_gae = gae_advantages
+batched_returns_dones = returns_with_dones
+batched_gae_dones = gae_with_dones
 
 
 def whiten(adv, mask=None, eps=1e-6):

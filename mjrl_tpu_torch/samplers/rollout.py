@@ -17,8 +17,12 @@ Semantics:
   whose envs never terminate early).
 - ``sample_mode='samples'``: enough trajectories to reach ``num_samples``
   steps.
+- ``autoreset``: an environment whose episode ends is reset in the same
+  control step (a fresh ``env.reset`` of the whole batch, taken row by row
+  where ``done``), so every grid cell is a valid sample; episode ends are
+  recorded in ``dones`` for the done-aware return / GAE scans.
 
-``autoreset`` and ``mesh`` are not ported yet (ROADMAP.md queue 1 / M11).
+``mesh`` is not ported yet (ROADMAP.md M11).
 """
 
 import math
@@ -53,22 +57,27 @@ def _select(alive, new, old):
 @torch.no_grad()
 def rollout_batch(env, policy, params, transforms, generator, num_traj,
                   horizon=None, eval_mode=False, mesh=None,
-                  autoreset=False, state0=None, noise=None):
+                  autoreset=False, state0=None, noise=None, resets=None):
     """Collect ``num_traj`` fixed-length paths fully on the env's device.
 
     env: functional env; policy: GaussianMLP; params/transforms: policy
     parameter dict and Transforms; generator: torch.Generator on the env's
     device (resets and action noise).
 
+    Without ``autoreset`` each row is one episode, frozen after it ends and
+    padded behind a validity ``mask``.  With it, rows run on through resets:
+    ``rewards`` are unmasked, ``mask`` is all ones, ``dones`` (num_traj, T)
+    marks each episode's last step, ``terminated`` is ``dones[:, -1] > 0``
+    and ``last_obs`` is the obs after the last step (before any reset).
+
     For tests only: ``state0`` starts from a given EnvState instead of
     ``env.reset``; ``noise`` (T, num_traj, act_dim) is used instead of
-    drawn noise.
+    drawn noise; ``resets`` gives the fresh states of autoreset instead of
+    ``env.reset``: a callable ``t -> EnvState`` of num_traj rows, or a pair
+    (qpos (T, num_traj, nq), qvel (T, num_traj, nv)).
 
     Returns a dict with leaves of shape (num_traj, T, ...).
     """
-    if autoreset:
-        raise NotImplementedError(
-            "autoreset rollouts are not ported (ROADMAP.md queue 1)")
     if mesh is not None:
         raise NotImplementedError(
             "sharded rollouts are not ported (ROADMAP.md M11)")
@@ -84,8 +93,16 @@ def rollout_batch(env, policy, params, transforms, generator, num_traj,
     means = torch.empty((B, T, A), dtype=dt, device=dev)
     rewards = torch.empty((B, T), dtype=dt, device=dev)
     mask = torch.ones((B, T), dtype=dt, device=dev)
+    dones = torch.zeros((B, T), dtype=dt, device=dev) if autoreset else None
     infos = []
     alive = torch.ones((B,), dtype=dt, device=dev)
+    if resets is None:
+        fresh_state = lambda t: env.reset(B, generator)
+    elif callable(resets):
+        fresh_state = resets
+    else:
+        fresh_state = lambda t: env.state_from_qpos_qvel(resets[0][t],
+                                                         resets[1][t])
 
     for t in range(T):
         mean, log_std = policy.dist_info(params, transforms, s.obs)
@@ -99,20 +116,36 @@ def rollout_batch(env, policy, params, transforms, generator, num_traj,
         observations[:, t] = s.obs
         actions[:, t] = action
         means[:, t] = mean
-        if terminating:
+        info = ns.info
+        if autoreset:
+            rewards[:, t] = ns.reward
+            last_obs = ns.obs
+            if terminating:
+                # rows whose episode ended start afresh in the next step
+                dones[:, t] = ns.done.to(dt)
+                ns = _select(dones[:, t], fresh_state(t), ns)
+        elif terminating:
             # freeze the env after termination: padded tail steps stay at
             # the terminal state
             ns = _select(alive, ns, s)
+            info = ns.info
             rewards[:, t] = ns.reward * alive
             mask[:, t] = alive
             alive = alive * (1.0 - ns.done.to(dt))
         else:
             rewards[:, t] = ns.reward
-        infos.append(ns.info)
+        infos.append(info)
         s = ns
 
     env_infos = {k: torch.stack([i[k] for i in infos], dim=1)
                  for k in (infos[0] if infos else {})}
+    if autoreset:
+        return dict(
+            observations=observations, actions=actions, rewards=rewards,
+            agent_mean=means,
+            agent_log_std=params["log_std"].to(dt).expand(B, T, A),
+            mask=mask, dones=dones, env_infos=env_infos,
+            terminated=dones[:, -1] > 0, last_obs=last_obs)
     return dict(
         observations=observations,
         actions=actions,
@@ -197,21 +230,37 @@ def _to_numpy(tree):
 
 def paths_to_list(batch):
     """Batched paths dict -> mjrl-format list of per-path dicts (numpy),
-    truncated to each path's valid length."""
+    truncated to each path's valid length.  Autoreset batches (with a
+    ``dones`` grid) are split on episode boundaries, so every dict is ONE
+    episode with its ``terminated`` flag: a row may hold several episodes
+    and a truncated tail."""
     batch = _to_numpy(batch)
+
+    def slice_path(i, lo, hi, terminated):
+        return dict(
+            observations=batch["observations"][i][lo:hi],
+            actions=batch["actions"][i][lo:hi],
+            rewards=batch["rewards"][i][lo:hi],
+            agent_infos={
+                "mean": batch["agent_mean"][i][lo:hi],
+                "log_std": batch["agent_log_std"][i][0],
+                "evaluation": batch["agent_mean"][i][lo:hi],
+            },
+            env_infos={k: v[i][lo:hi] for k, v in batch["env_infos"].items()},
+            terminated=bool(terminated),
+        )
+
     out = []
     for i in range(batch["rewards"].shape[0]):
-        T = int(batch["mask"][i].sum())
-        out.append(dict(
-            observations=batch["observations"][i][:T],
-            actions=batch["actions"][i][:T],
-            rewards=batch["rewards"][i][:T],
-            agent_infos={
-                "mean": batch["agent_mean"][i][:T],
-                "log_std": batch["agent_log_std"][i][0],
-                "evaluation": batch["agent_mean"][i][:T],
-            },
-            env_infos={k: v[i][:T] for k, v in batch["env_infos"].items()},
-            terminated=bool(batch["terminated"][i]),
-        ))
+        if "dones" in batch:
+            dones = batch["dones"][i]
+            lo = 0
+            for e in np.flatnonzero(dones > 0):
+                out.append(slice_path(i, lo, int(e) + 1, True))
+                lo = int(e) + 1
+            if lo < dones.shape[0]:        # truncated trailing episode
+                out.append(slice_path(i, lo, dones.shape[0], False))
+        else:
+            T = int(batch["mask"][i].sum())
+            out.append(slice_path(i, 0, T, batch["terminated"][i]))
     return out

@@ -23,6 +23,7 @@ import pickle
 
 import numpy as np
 
+from mjrl_tpu_torch.ops.flat import tree_to
 from mjrl_tpu_torch.samplers.rollout import sample_paths
 from mjrl_tpu_torch.utils.make_train_plots import make_train_plots
 
@@ -55,7 +56,7 @@ def _load_latest_policy_and_logs(agent, policy_dir, logs_dir):
             agent.running_score = extra.get("running_score",
                                             agent.running_score)
             if "opt_state" in extra and hasattr(agent, "opt_state"):
-                agent.opt_state = extra["opt_state"]
+                agent.opt_state = tree_to(extra["opt_state"], agent.device)
         agent.logger.shrink_to(i + 1)
         return i + 1
     return 0
@@ -162,7 +163,7 @@ def _save_checkpoint(agent, best_policy, iter_dir, tag):
     extra = dict(rng_state=agent.generator.get_state(),
                  running_score=agent.running_score)
     if hasattr(agent, "opt_state"):
-        extra["opt_state"] = agent.opt_state
+        extra["opt_state"] = tree_to(agent.opt_state, "cpu")
     with open(os.path.join(iter_dir, f"checkpoint_{tag}.pickle"), "wb") as f:
         pickle.dump(extra, f)
 

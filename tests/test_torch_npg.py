@@ -131,12 +131,24 @@ def test_whiten_matches_jax(ragged, masked):
     close(got, want, SCAN_TOL)
 
 
-def test_done_aware_scans_wait_for_autoreset():
-    x = torch.zeros((2, 3))
-    with pytest.raises(NotImplementedError, match="queue 1"):
-        tgae.returns_with_dones(x, x, 0.9)
-    with pytest.raises(NotImplementedError, match="queue 1"):
-        tgae.gae_with_dones(x, x, x, x[:, 0], 0.9, 0.9)
+def test_done_aware_scans_wait_for_autoreset(ragged):
+    """The done-aware scans of autoreset grids (ported): on a grid whose
+    episode ends are the ragged batch's last valid steps, against the JAX
+    package's, and the chain cut at each end."""
+    r, v, mask, _ = ragged
+    lengths = mask.sum(1).astype(int)
+    d = np.zeros_like(r)
+    d[np.arange(len(r)), lengths - 1] = 1.0
+    v_last = v[:, -1] * 0.5
+    got = tgae.returns_with_dones(T64(r), T64(d), 0.9)
+    close(got, jgae.batched_returns_dones(jnp.asarray(r), jnp.asarray(d),
+                                          0.9), SCAN_TOL)
+    close(got * T64(mask), tgae.discounted_returns(T64(r), 0.9, T64(mask)),
+          SCAN_TOL)
+    close(tgae.gae_with_dones(T64(r), T64(v), T64(d), T64(v_last), 0.9, 0.8),
+          jgae.batched_gae_dones(jnp.asarray(r), jnp.asarray(v),
+                                 jnp.asarray(d), jnp.asarray(v_last), 0.9,
+                                 0.8), SCAN_TOL)
 
 
 # ---------------------------------------------------------------------------
@@ -424,6 +436,10 @@ def test_host_baselines(paths_batch):
     z = thost.ZeroBaseline(spec, device="cpu")
     assert z.fit(paths, return_errors=True) == (1.0, 1.0)
     assert float(np.abs(z.predict(paths[0])).sum()) == 0.0
-    for ctor in (thost.QuadraticBaseline, thost.MLPBaseline):
-        with pytest.raises(NotImplementedError, match="M6b"):
-            ctor(spec)
+    # the M6b constructors (ported): each builds and fits the same paths
+    for ctor, kw in ((thost.QuadraticBaseline, {}),
+                     (thost.MLPBaseline, {"hidden_sizes": (8,)})):
+        bl = ctor(spec, dtype=torch.float64, device="cpu", **kw)
+        e0, e1 = bl.fit(paths, return_errors=True)
+        assert np.isfinite(e0) and e1 < e0
+        assert bl.predict(paths[3]).shape == (len(paths[3]["returns"]),)

@@ -300,11 +300,25 @@ def test_sample_paths_and_samples_mode(envs):
     assert sum(len(p["rewards"]) for p in got) >= 23
 
 
-@pytest.mark.parametrize("kwargs, match", [({"autoreset": True}, "queue 1"),
-                                           ({"mesh": object()}, "M11")])
+@pytest.mark.parametrize("kwargs, match", [
+    pytest.param({"autoreset": True}, None, id="kwargs0-queue 1"),
+    pytest.param({"mesh": object()}, "M11", id="kwargs1-M11")])
 def test_unported_rollout_options_raise(envs, policies, kwargs, match):
+    """``mesh`` (M11) raises; ``autoreset`` (queue 1, ported) runs: on the
+    Swimmer, which never ends an episode, it is the plain rollout with a
+    ``dones`` grid of zeros."""
     _, tenv = envs
     _, (tcfg, tp, tt) = policies
-    with pytest.raises(NotImplementedError, match=match):
-        trollout.rollout_batch(tenv, tcfg, tp, tt, None, 2, horizon=2,
-                               **kwargs)
+    if match is not None:
+        with pytest.raises(NotImplementedError, match=match):
+            trollout.rollout_batch(tenv, tcfg, tp, tt, None, 2, horizon=2,
+                                   **kwargs)
+        return
+    roll = lambda **kw: trollout.rollout_batch(
+        tenv, tcfg, tp, tt, torch.Generator().manual_seed(3), 2, horizon=2,
+        **kw)
+    got, plain = roll(**kwargs), roll()
+    assert got["dones"].shape == (2, 2)
+    assert float(got["dones"].abs().sum()) == 0.0
+    for k in ("observations", "actions", "rewards", "mask", "last_obs"):
+        close(got[k], plain[k], 0.0)

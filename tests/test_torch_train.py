@@ -179,8 +179,9 @@ def test_agent_rejects_mixed_devices_and_unported_options():
         NPG(e, policy, baseline, device="meta")
     with pytest.raises(NotImplementedError, match="M11"):
         NPG(e, policy, baseline, device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="queue 1"):
-        NPG(e, policy, baseline, device="cpu", autoreset=True)
+    # autoreset (queue 1) is ported: the agent takes it
+    assert NPG(e, policy, baseline, device="cpu", autoreset=True).autoreset
+    assert not NPG(e, policy, baseline, device="cpu").autoreset
 
 
 def test_device_helpers(monkeypatch):
