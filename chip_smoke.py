@@ -52,6 +52,26 @@ non-zero with the phase's name:
             noise and fresh states) on the card against the same rollout on
             the CPU (the contact kernel's plain version).
 
+The general engine (physics/step.py, eager PyTorch: no kernel of csrc/)
+carries the last four phases; each asserts finite leaves and no launch of
+either planar kernel, and prints its launches per control step and the
+device's busy share over a profiled window (torch.profiler):
+
+13. rollout_point_mass  PointMassEnv (penalty, RK4), 4096 x 25, 32-32
+            policy, stochastic, float32.
+14. rollout_reacher     Reacher7DOFEnv at its default implicit solver
+            (limits and the fingertip-table contact through the dual),
+            4096 x 50, 64-64 policy, float32; then a 64 x 5 float64 rollout
+            with injected noise and resets on the card against the CPU
+            (1e-10): this engine has no kernel to hold against a plain
+            version, so this is its check that the card computes the same.
+15. rollout_inverted_pendulum  InvertedPendulumEnv (penalty, RK4),
+            4096 x 100: episodes end behind a non-increasing mask.
+16. train_job_point_mass_npg  examples/example_configs/point_mass_npg.json
+            through examples/torch_policy_opt_job_script.py, 3 iterations
+            (40 paths x 25, 10 evaluation rollouts): KL within the guard,
+            success_rate and eval_success logged and finite.
+
 Each phase's launches are counted from just before it to just after.  The
 last line is {"ok": true, "device": {...}}.
 """
@@ -76,13 +96,16 @@ from mjrl_tpu_torch.baselines import LinearBaseline, QuadraticBaseline
 from mjrl_tpu_torch.device import make_generator
 from mjrl_tpu_torch.envs import GymEnv
 from mjrl_tpu_torch.envs.gym_suite import (HalfCheetahEnv, HopperEnv,
-                                           Walker2dEnv)
+                                           InvertedPendulumEnv, Walker2dEnv)
+from mjrl_tpu_torch.envs.point_mass import PointMassEnv
+from mjrl_tpu_torch.envs.reacher import Reacher7DOFEnv
 from mjrl_tpu_torch.envs.swimmer import SwimmerEnv
 from mjrl_tpu_torch.models.policies import MLP
 from mjrl_tpu_torch.ops import cuda_planar
 from mjrl_tpu_torch.physics import planar
 from mjrl_tpu_torch.physics.planar import step_n_arrays
 from mjrl_tpu_torch.samplers.rollout import rollout_batch, sample_paths
+from mjrl_tpu_torch.utils.profile_main_path import device_rows
 from mjrl_tpu_torch.utils.train_agent import train_agent
 
 # published peaks of one H100 SXM (NVIDIA data sheet): the roofline bound
@@ -771,7 +794,8 @@ def run_counted(fn):
 
 def phase_train_job(config, kernel, horizon, phase, overrides):
     """A config of examples/example_configs through the port's job script,
-    as a user runs it (``main``), 3 iterations -> (agent, launches)."""
+    as a user runs it (``main``), 3 iterations -> (agent, launches);
+    ``kernel`` None: neither planar kernel may launch."""
     script = job_script()
     cfg_path = os.path.join(EXAMPLES, "example_configs", config)
     with tempfile.TemporaryDirectory() as tmp:
@@ -786,8 +810,11 @@ def phase_train_job(config, kernel, horizon, phase, overrides):
             if not os.path.exists(os.path.join(job, f)):
                 raise AssertionError(f"{phase}: the job script did not "
                                      f"write {f}")
-    other = SMOOTH if kernel == CONTACT else CONTACT
-    want = {kernel: NITER * horizon, other: 0}
+    if kernel is None:
+        want = NO_LAUNCHES
+    else:
+        other = SMOOTH if kernel == CONTACT else CONTACT
+        want = {kernel: NITER * horizon, other: 0}
     if counts != want:
         raise AssertionError(f"{phase}: launched {counts}, expected {want}")
     if agent.device.type != "cuda" or agent.baseline.device.type != "cuda":
@@ -990,6 +1017,190 @@ def phase_autoreset_card():
     return counts[CONTACT]
 
 
+# ---------------------------------------------------------------------------
+# the general engine (eager PyTorch): no planar kernel on these paths
+# ---------------------------------------------------------------------------
+
+NO_LAUNCHES = {SMOOTH: 0, CONTACT: 0}
+
+
+def profiled_window(fn, steps):
+    """fn() under torch.profiler -> (device launches per control step,
+    share of the window's wall time the device was busy, window ms).  The
+    profiler's own cost grows with the launches it records (thousands per
+    control step on these paths), so the windows are two steps long."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.time()
+        fn()
+        torch.cuda.synchronize()
+        window_ms = (time.time() - t0) * 1e3
+    rows = device_rows(prof)
+    return (sum(r[2] for r in rows) / steps,
+            sum(r[1] for r in rows) / window_ms, window_ms)
+
+
+def check_finite(batch, phase):
+    for k, leaf in batch.items():
+        if torch.is_tensor(leaf) and leaf.is_floating_point() \
+                and not torch.isfinite(leaf).all():
+            raise AssertionError(f"{phase}: leaf {k} not finite")
+
+
+def general_rollout(phase, env, hidden, horizon, window):
+    """A stochastic rollout of ``env`` at NUM_ENVS x horizon through the
+    general engine: no planar kernel launches; -> (batch, record)."""
+    assert env.device.type == "cuda" and env._planar is None
+    policy = MLP(env.spec, hidden_sizes=hidden, seed=1)
+    gen = make_generator(7, env.device)
+    roll = lambda T: rollout_batch(env, policy.config, policy.params,
+                                   policy.transforms, gen, NUM_ENVS,
+                                   horizon=T)
+    roll(2)                                         # warms up
+    torch.cuda.reset_peak_memory_stats()
+    batch, counts, seconds = run_counted(lambda: roll(horizon))
+    if counts != NO_LAUNCHES:
+        raise AssertionError(f"{phase}: launched {counts}")
+    check_finite(batch, phase)
+    A, O = env.action_dim, env.observation_dim
+    if tuple(batch["observations"].shape) != (NUM_ENVS, horizon, O) \
+            or tuple(batch["actions"].shape) != (NUM_ENVS, horizon, A):
+        raise AssertionError(f"{phase}: shapes wrong")
+    per_step, busy, window_ms = profiled_window(lambda: roll(window), window)
+    return batch, {
+        "phase": phase, "num_envs": NUM_ENVS, "horizon": horizon,
+        "dtype": str(env.dtype).replace("torch.", ""), "seconds": seconds,
+        "control_steps_per_s": NUM_ENVS * horizon / seconds,
+        "ms_per_control_step": seconds / horizon * 1e3,
+        "kernel_launches": counts, "window_steps": window,
+        "window_ms": window_ms, "device_launches_per_step": per_step,
+        "device_busy_share": busy,
+        "peak_device_memory_bytes": torch.cuda.max_memory_allocated()}
+
+
+def phase_rollout_point_mass():
+    batch, rec = general_rollout("rollout_point_mass", PointMassEnv(),
+                                 (32, 32), 25, 2)
+    solved = batch["env_infos"]["solved"]
+    rec.update(mean_return=batch["rewards"].sum(1).mean().item(),
+               success_rate=PointMassEnv.evaluate_success(
+                   solved.cpu().numpy()))
+    emit(rec)
+    return rec["kernel_launches"]
+
+
+def reacher_card_vs_cpu():
+    """A 64 x 5 float64 reacher rollout (injected start states near the
+    joint limits, targets, action noise and autoreset fresh states) on the
+    card against the same on the CPU -> max abs error by leaf."""
+    B, T = 64, 5
+    rng = np.random.RandomState(19)
+    envs = [Reacher7DOFEnv(dtype=torch.float64, device=d)
+            for d in ("cuda", "cpu")]
+    lo, hi = envs[1].model.jnt_range[:, 0], envs[1].model.jnt_range[:, 1]
+    q0 = rng.uniform(lo - 0.05, hi + 0.05, (B, 7))
+    v0 = rng.uniform(-2, 2, (B, 7))
+    target = rng.uniform(-1, 1, (B, 3)) * np.array([0.3, 0.2, 0.25])
+    resets = (np.zeros((T, B, 7)), np.zeros((T, B, 7)))
+    noise = rng.normal(size=(T, B, 7))
+    params = convert.params_to_numpy(MLP(
+        envs[1].spec, hidden_sizes=(64, 64), seed=3, dtype=torch.float64,
+        device="cpu").params)
+    out = []
+    for env in envs:
+        d = env.device
+        policy = convert.policy_params_from_numpy(
+            MLP(env.spec, hidden_sizes=(64, 64), dtype=torch.float64,
+                device=d), params)
+        out.append(run_counted(lambda: rollout_batch(
+            env, policy.config, policy.params, policy.transforms, None, B,
+            horizon=T, autoreset=True,
+            state0=env.state_from_qpos_qvel(q0, v0, {"target_pos": target}),
+            noise=torch.tensor(noise, device=d),
+            resets=tuple(torch.tensor(a, device=d) for a in resets)))[:2])
+    (gpu, counts), (cpu, _) = out
+    if counts != NO_LAUNCHES:
+        raise AssertionError(f"reacher card vs CPU launched {counts}")
+    tol, errs = 1e-10, {}
+    for k in ("observations", "actions", "rewards", "last_obs"):
+        torch.testing.assert_close(gpu[k].cpu(), cpu[k], rtol=tol, atol=tol,
+                                   msg=lambda m: f"{k}: {m}")
+        errs[k] = (gpu[k].cpu() - cpu[k]).abs().max().item()
+    return {"B": B, "horizon": T, "dtype": "float64", "rtol_atol": tol,
+            "max_abs_err": errs}
+
+
+def phase_rollout_reacher():
+    env = Reacher7DOFEnv()
+    if env.model.solver != 1 or not env.model.contact_pairs:
+        raise AssertionError("the reacher is not on its implicit solver "
+                             "with its table contact")
+    batch, rec = general_rollout("rollout_reacher", env, (64, 64), 50, 2)
+    rec["mean_return"] = batch["rewards"].sum(1).mean().item()
+    q = batch["observations"][..., :7]
+    lo = torch.tensor(env.model.jnt_range[:, 0], device=q.device,
+                      dtype=q.dtype)
+    hi = torch.tensor(env.model.jnt_range[:, 1], device=q.device,
+                      dtype=q.dtype)
+    rec["share_of_steps_past_a_limit"] = (
+        ((q < lo) | (q > hi)).any(-1).float().mean().item())
+    rec["card_vs_cpu"] = reacher_card_vs_cpu()
+    emit(rec)
+    return rec["kernel_launches"]
+
+
+def phase_rollout_inverted_pendulum():
+    horizon = 100
+    batch, rec = general_rollout("rollout_inverted_pendulum",
+                                 InvertedPendulumEnv(), (64, 64), horizon, 2)
+    mask = batch["mask"]
+    if not bool((mask[:, :-1] >= mask[:, 1:]).all()) \
+            or not bool(((mask == 0) | (mask == 1)).all()):
+        raise AssertionError("mask is not a prefix of ones")
+    lengths = mask.sum(1)
+    n_term = int(batch["terminated"].sum())
+    if n_term == 0 or not bool((lengths < horizon).any()):
+        raise AssertionError("no pendulum episode ended early")
+    if not bool((batch["terminated"] == (lengths < horizon)).all()):
+        raise AssertionError("terminated disagrees with the mask")
+    if float((batch["rewards"] * (1 - mask)).abs().sum()) != 0.0:
+        raise AssertionError("rewards after the end of an episode")
+    rec.update(valid_steps=int(mask.sum()), terminated=n_term,
+               mean_episode_length=lengths.mean().item())
+    emit(rec)
+    return rec["kernel_launches"]
+
+
+def phase_train_job_point_mass_npg():
+    torch.cuda.reset_peak_memory_stats()
+    agent, counts, seconds, vf_steps = phase_train_job(
+        "point_mass_npg.json", None, 0, "train_job_point_mass_npg", [])
+    log = agent.logger.log
+    if type(agent).__name__ != "NPG" or agent.fenv.horizon != 25 \
+            or log["num_samples"] != [40 * 25] * NITER:
+        raise AssertionError(f"point_mass_npg.json did not build its NPG: "
+                             f"num_samples {log['num_samples']}")
+    for k in ("success_rate", "eval_success"):
+        if k not in log:
+            raise AssertionError(f"{k} not logged")
+    kl_cap = agent.kl_guard * agent.n_step_size / 2
+    if not all(kl <= kl_cap * (1 + 1e-6) for kl in log["kl_dist"]):
+        raise AssertionError(f"kl_dist {log['kl_dist']} above {kl_cap}")
+    emit({"phase": "train_job_point_mass_npg",
+          "config": "point_mass_npg.json", "iterations": NITER,
+          "seconds": seconds, "kernel_launches": counts,
+          "num_samples": log["num_samples"],
+          "time_sampling": log["time_sampling"], "time_npg": log["time_npg"],
+          "time_VF": log["time_VF"], "vf_adam_steps": vf_steps,
+          "kl_dist": log["kl_dist"], "success_rate": log["success_rate"],
+          "eval_success": log["eval_success"],
+          "stoc_pol_mean": log["stoc_pol_mean"],
+          "peak_device_memory_bytes": torch.cuda.max_memory_allocated()})
+    return counts
+
+
 def main():
     t_start = time.time()
     phase = "device"
@@ -1031,6 +1242,22 @@ def main():
         kernel["launches_by_path"][phase] = phase_bc_swimmer(expert.policy)
         phase = "autoreset_card"
         contact["launches_by_path"][phase] = phase_autoreset_card()
+        # the general engine's paths: each launches neither kernel
+        phase_seconds = {}
+        for phase, fn in (
+                ("rollout_point_mass", phase_rollout_point_mass),
+                ("rollout_reacher", phase_rollout_reacher),
+                ("rollout_inverted_pendulum",
+                 phase_rollout_inverted_pendulum),
+                ("train_job_point_mass_npg",
+                 phase_train_job_point_mass_npg)):
+            t0 = time.time()
+            counts = fn()
+            phase_seconds[phase] = time.time() - t0
+            kernel["launches_by_path"][phase] = counts[SMOOTH]
+            contact["launches_by_path"][phase] = counts[CONTACT]
+        emit({"phase": "general_engine", "phase_seconds": phase_seconds,
+              "seconds": sum(phase_seconds.values())})
     except Exception:
         traceback.print_exc()
         print(f"chip_smoke: phase '{phase}' failed", file=sys.stderr)

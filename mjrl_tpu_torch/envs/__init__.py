@@ -1,14 +1,17 @@
 """Environment registry (counterpart of ``mjrl_tpu/envs/__init__.py``).
 
 ``make(env_id)`` returns a functional env; ``GymEnv(env_id)`` wraps it with
-the stateful host-side API.  Ported so far: the swimmer and the planar
-gym locomotion suite (Hopper, Walker2d, HalfCheetah); the remaining ids are
-listed in ROADMAP.md queue 1.
+the stateful host-side API.  Ported so far: the point mass, the swimmer,
+the 7-DoF reacher, the planar gym locomotion suite (Hopper, Walker2d,
+HalfCheetah) and InvertedPendulum; the remaining ids are listed in
+ROADMAP.md queue 1.
 """
 
 from mjrl_tpu_torch.envs.base import EnvSpec, EnvState, MujocoLikeEnv
 from mjrl_tpu_torch.envs.gym_suite import (HalfCheetahEnv, HopperEnv,
-                                           Walker2dEnv)
+                                           InvertedPendulumEnv, Walker2dEnv)
+from mjrl_tpu_torch.envs.point_mass import PointMassEnv
+from mjrl_tpu_torch.envs.reacher import Reacher7DOFEnv
 from mjrl_tpu_torch.envs.swimmer import SwimmerEnv
 
 _REGISTRY = {}
@@ -31,12 +34,16 @@ def make(env_id, **overrides):
     return cls(**{**kwargs, **overrides})
 
 
+register("mjrl_point_mass-v0", PointMassEnv)
 register("mjrl_swimmer-v0", SwimmerEnv)
+register("mjrl_reacher_7dof-v0", Reacher7DOFEnv)
 for _id in ("Hopper-v3", "Hopper-v4"):
     register(_id, HopperEnv)
 for _id in ("HalfCheetah-v3", "HalfCheetah-v4"):
     register(_id, HalfCheetahEnv)
 for _id in ("Walker2d-v3", "Walker2d-v4"):
     register(_id, Walker2dEnv)
+for _id in ("InvertedPendulum-v2", "InvertedPendulum-v4"):
+    register(_id, InvertedPendulumEnv)
 
 from mjrl_tpu_torch.envs.gym_env import GymEnv  # noqa: E402  (needs _REGISTRY)

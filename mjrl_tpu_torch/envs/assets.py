@@ -1,5 +1,6 @@
 """Programmatic model definitions for the mjrl environment suite
-(counterpart of ``mjrl_tpu/envs/assets.py``; the swimmer only so far).
+(counterpart of ``mjrl_tpu/envs/assets.py``: point mass, swimmer and the
+7-DoF reacher).
 
 Each function builds the same physical system as the corresponding mjrl
 MJCF asset via the ModelBuilder — no MJCF files are shipped.
@@ -8,6 +9,39 @@ MJCF asset via the ModelBuilder — no MJCF files are shipped.
 import numpy as np
 
 from mjrl_tpu_torch.physics.model import ModelBuilder
+
+
+def point_mass_model(solver=None, dtype=np.float64):
+    """PointMass: 2 slide joints, gravity 0, RK4 dt 0.01
+    (assets/point_mass.xml).  Returns the ModelBuilder, or the finalized
+    Model when ``solver`` is given, its constants rounded to ``dtype``.
+
+    Defaults: joint armature 0.01, damping 0.1, limited; geom contype 0,
+    friction (1, .1, .1); motor ctrlrange [-1, 1].
+    """
+    b = ModelBuilder(timestep=0.01, gravity=(0, 0, 0), integrator="rk4")
+    # arena (world geoms; no active contacts: agent is contype/conaff 1 but
+    # all world geoms have conaffinity 0)
+    b.add_geom(0, "plane", size=(1.5, 1.5, 0.05), pos=(0, 0, 0),
+               contype=0, conaffinity=0, friction=(1, 0.1, 0.1), name="ground")
+    for name, fromto in [
+            ("sideS", (-1.5, -1.5, .02, 1.5, -1.5, .02)),
+            ("sideE", (1.5, -1.5, .02, 1.5, 1.5, .02)),
+            ("sideN", (-1.5, 1.5, .02, 1.5, 1.5, .02)),
+            ("sideW", (-1.5, -1.5, .02, -1.5, 1.5, .02))]:
+        b.add_geom(0, "capsule", size=(0.04,), fromto=fromto, mass=0.1,
+                   contype=0, conaffinity=0, friction=(1, 0.1, 0.1), name=name)
+    agent = b.add_body(0, pos=(0, 0, 0.05), name="agent")
+    jx = b.add_joint(agent, "slide", axis=(1, 0, 0), jnt_range=(-1.4, 1.4),
+                     damping=0.1, armature=0.01, name="agent_x")
+    jy = b.add_joint(agent, "slide", axis=(0, 1, 0), jnt_range=(-1.4, 1.4),
+                     damping=0.1, armature=0.01, name="agent_y")
+    b.add_geom(agent, "sphere", size=(0.05,), contype=1, conaffinity=1,
+               friction=(1, 0.1, 0.1), name="agent")
+    b.add_site(0, pos=(1.0, 0, 0.05), name="target")
+    b.add_actuator(jx, gear=10.0, ctrlrange=(-1, 1))
+    b.add_actuator(jy, gear=10.0, ctrlrange=(-1, 1))
+    return b if solver is None else b.finalize(solver=solver, dtype=dtype)
 
 
 def swimmer_model(solver=None, dtype=np.float64):
@@ -46,4 +80,82 @@ def swimmer_model(solver=None, dtype=np.float64):
     b.add_site(0, pos=(-5, 0, 0.15), name="target")
     for j in jids:
         b.add_actuator(j, gear=20.0, ctrlrange=(-1, 1))
+    return b if solver is None else b.finalize(solver=solver, dtype=dtype)
+
+
+def reacher_model(solver=None, dtype=np.float64):
+    """Sawyer-style 7-DoF reacher, gravity 0, Euler dt 0.01
+    (assets/sawyer.xml).  Defaults: armature 0.004, damping 0.8, limited;
+    geom friction (.5, .1, .1), margin 0.002, contype/conaffinity 0 (the
+    table plane and the fingertip sphere collide: one frictionless
+    contact pair).  Returns the ModelBuilder, or the finalized Model when
+    ``solver`` is given."""
+    b = ModelBuilder(timestep=0.01, gravity=(0, 0, 0), integrator="euler")
+    gdef = dict(contype=0, conaffinity=0, friction=(.5, .1, .1),
+                margin=0.002, condim=1)
+    b.add_geom(0, "plane", size=(1, 1, 0.1), pos=(0, 0.5, -0.425),
+               contype=1, conaffinity=1, friction=(.5, .1, .1), margin=0.002,
+               condim=1, name="table")
+    b.add_site(0, pos=(0.1, 0.1, 0.1), name="target")
+
+    jdef = dict(armature=0.004)
+
+    b0 = b.add_body(0, pos=(0, -0.6, 0), name="r_shoulder_pan_link")
+    b.add_geom(b0, "sphere", size=(0.05,), pos=(-0.06, 0.05, 0.2), **gdef)
+    b.add_geom(b0, "sphere", size=(0.05,), pos=(0.06, 0.05, 0.2), **gdef)
+    b.add_geom(b0, "sphere", size=(0.03,), pos=(-0.06, 0.09, 0.2), **gdef)
+    b.add_geom(b0, "sphere", size=(0.03,), pos=(0.06, 0.09, 0.2), **gdef)
+    b.add_geom(b0, "capsule", size=(0.1,), fromto=(0, 0, -0.4, 0, 0, 0.2),
+               **gdef)
+    j0 = b.add_joint(b0, "hinge", axis=(0, 0, 1),
+                     jnt_range=(-2.2854, 1.714602), damping=2.0, **jdef)
+
+    b1 = b.add_body(b0, pos=(0.1, 0, 0), name="r_shoulder_lift_link")
+    b.add_geom(b1, "capsule", size=(0.1,), fromto=(0, -0.1, 0, 0, 0.1, 0),
+               **gdef)
+    j1 = b.add_joint(b1, "hinge", axis=(0, 1, 0),
+                     jnt_range=(-0.5236, 1.3963), damping=2.0, **jdef)
+
+    b2 = b.add_body(b1, pos=(0, 0, 0), name="r_upper_arm_roll_link")
+    b.add_geom(b2, "capsule", size=(0.02,), fromto=(-0.1, 0, 0, 0.1, 0, 0),
+               **gdef)
+    j2 = b.add_joint(b2, "hinge", axis=(1, 0, 0), jnt_range=(-1.5, 1.7),
+                     damping=0.8, **jdef)
+
+    b3 = b.add_body(b2, pos=(0, 0, 0), name="r_upper_arm_link")
+    b.add_geom(b3, "capsule", size=(0.06,), fromto=(0, 0, 0, 0.4, 0, 0),
+               **gdef)
+
+    b4 = b.add_body(b3, pos=(0.4, 0, 0), name="r_elbow_flex_link")
+    b.add_geom(b4, "capsule", size=(0.06,), fromto=(0, -0.02, 0, 0, 0.02, 0),
+               **gdef)
+    j4 = b.add_joint(b4, "hinge", axis=(0, 1, 0), jnt_range=(-2.3213, 0),
+                     damping=0.8, **jdef)
+
+    b5 = b.add_body(b4, pos=(0, 0, 0), name="r_forearm_roll_link")
+    b.add_geom(b5, "capsule", size=(0.02,), fromto=(-0.1, 0, 0, 0.1, 0, 0),
+               **gdef)
+    j5 = b.add_joint(b5, "hinge", axis=(1, 0, 0), jnt_range=(-1.5, 1.5),
+                     damping=0.8, limited=True, **jdef)
+
+    b6 = b.add_body(b5, pos=(0, 0, 0), name="r_forearm_link")
+    b.add_geom(b6, "capsule", size=(0.05,), fromto=(0, 0, 0, 0.291, 0, 0),
+               **gdef)
+
+    b7 = b.add_body(b6, pos=(0.321, 0, 0), name="r_wrist_flex_link")
+    b.add_geom(b7, "capsule", size=(0.01,), fromto=(0, -0.02, 0, 0, 0.02, 0),
+               **gdef)
+    j7 = b.add_joint(b7, "hinge", axis=(0, 1, 0), jnt_range=(-1.094, 0),
+                     damping=0.8, **jdef)
+
+    b8 = b.add_body(b7, pos=(0, 0, 0), name="r_wrist_roll_link")
+    j8 = b.add_joint(b8, "hinge", axis=(1, 0, 0), jnt_range=(-1.5, 1.5),
+                     damping=0.8, limited=True, **jdef)
+    b.add_geom(b8, "sphere", size=(0.08,), pos=(0.03, 0, 0), contype=1,
+               conaffinity=1, friction=(.5, .1, .1), margin=0.002, condim=1)
+    b.add_site(b8, pos=(0, 0, 0), name="finger")
+
+    for j, gear in [(j0, 20), (j1, 10), (j2, 10), (j4, 10), (j5, 10),
+                    (j7, 10), (j8, 10)]:
+        b.add_actuator(j, gear=gear, ctrlrange=(-1, 1))
     return b if solver is None else b.finalize(solver=solver, dtype=dtype)

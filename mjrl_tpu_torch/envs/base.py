@@ -9,8 +9,13 @@ tensors with a leading batch dimension, living on the env's device:
                                              #   (frame_skip substeps inside)
 
 Where the JAX package writes a per-environment function and ``vmap``s it,
-the port writes the batch dimension out.  On a CUDA device ``step`` launches
-the hand-written planar kernel (``ops/cuda_planar.py``) once per call.
+the port writes the batch dimension out.  A model that qualifies for the
+planar fast path (and is not moved per episode) is stepped by it: on a CUDA
+device ``step`` launches the hand-written planar kernel
+(``ops/cuda_planar.py``) once per call.  Every other model goes through the
+general engine (``physics/step.py::step_n``, eager PyTorch), and envs that
+observe world positions (``needs_fk_obs``) take forward kinematics after
+the step.
 """
 
 from dataclasses import dataclass, replace
@@ -21,8 +26,10 @@ import torch
 
 from mjrl_tpu_torch.device import resolve_device
 from mjrl_tpu_torch.ops.cuda_planar import cuda_step_n_batched
+from mjrl_tpu_torch.physics.kinematics import body_frames, site_positions
 from mjrl_tpu_torch.physics.model import Model, State
 from mjrl_tpu_torch.physics.planar import extract_planar
+from mjrl_tpu_torch.physics.step import check_model, step_n
 
 # MuJoCo's mjMAXVAL: any |qpos|/|qvel| beyond this (or non-finite) triggers
 # a state reset instead of propagating garbage.
@@ -52,7 +59,7 @@ class EnvSpec:
 @dataclass
 class EnvState:
     physics: State           # qpos, qvel (B, nv)
-    scenery: Dict[str, Any]  # movable model overrides (none for swimmer)
+    scenery: Dict[str, Any]  # movable model overrides (e.g. target pos)
     obs: Any                 # (B, obs_dim)
     reward: Any              # (B,)
     done: Any                # (B,) bool
@@ -70,27 +77,43 @@ class MujocoLikeEnv:
     ``observation_dim``, ``_obs(data, scenery, physics)``,
     ``_reward(obs, action, prev_state, new_physics)``, ``_info(obs,
     reward)``, ``_reset_scenery(n, generator)``,
-    ``_reset_qpos_qvel(n, generator)`` — all batch-first.
+    ``_reset_qpos_qvel(n, generator)`` — all batch-first — and, when the
+    scenery moves sites, ``_site_pos(scenery)``.
     """
 
     model: Model
     frame_skip: int
     horizon: int
     # envs whose _obs ignores kinematic data (qpos/qvel-only observations)
-    # set this False; forward kinematics for observations is not ported
-    # yet (ROADMAP.md M8), so it must be False for now
+    # set this False to skip the post-step forward kinematics
     needs_fk_obs = True
 
     def _init_common(self, dtype, device):
         self.dtype = dtype
         self.device = resolve_device(device)
+        # the planar fast path, when the model qualifies and the env never
+        # moves a part of the model per episode (as the JAX package picks)
+        static_model = type(self)._site_pos is MujocoLikeEnv._site_pos
         self._planar = extract_planar(
-            self.model, np.float32 if dtype == torch.float32 else np.float64)
-        if self._planar is None or self.needs_fk_obs:
-            raise NotImplementedError(
-                "only models with a planar fast path and qpos/qvel "
-                "observations are ported; the general 3D engine is "
-                "ROADMAP.md M8")
+            self.model, np.float32 if dtype == torch.float32
+            else np.float64) if static_model else None
+        if self._planar is None:
+            check_model(self.model)
+
+    # -- model patching ------------------------------------------------
+    def _site_pos(self, scenery):
+        """(B, nsite, 3) local site positions that the scenery moves (the
+        JAX package's ``_patched_model``), or None for the model's."""
+        return None
+
+    def _kinematics(self, physics, scenery):
+        """Forward kinematics for observations: body frames and sites."""
+        if not self.needs_fk_obs:
+            return None
+        data = body_frames(self.model, physics.qpos)
+        data.site_xpos = site_positions(self.model, data,
+                                        self._site_pos(scenery))
+        return data
 
     # -- spec ----------------------------------------------------------
     @property
@@ -111,7 +134,7 @@ class MujocoLikeEnv:
 
     # -- core API ------------------------------------------------------
     def _fresh_state(self, physics, scenery):
-        obs = self._obs(None, scenery, physics)
+        obs = self._obs(self._kinematics(physics, scenery), scenery, physics)
         n = obs.shape[0]
         reward = torch.zeros((n,), dtype=obs.dtype, device=obs.device)
         return EnvState(
@@ -128,12 +151,17 @@ class MujocoLikeEnv:
     def step(self, state: EnvState, action) -> EnvState:
         action = action.to(state.obs.dtype).contiguous()
         # action clipping to the control range happens inside the step
-        qpos, qvel = cuda_step_n_batched(
-            self._planar, state.physics.qpos, state.physics.qvel, action,
-            self.frame_skip)
-        physics = _rescue_divergence(state.physics,
-                                     State(qpos=qpos, qvel=qvel))
-        obs = self._obs(None, state.scenery, physics)
+        if self._planar is not None:
+            qpos, qvel = cuda_step_n_batched(
+                self._planar, state.physics.qpos, state.physics.qvel, action,
+                self.frame_skip)
+            physics = State(qpos=qpos, qvel=qvel)
+        else:
+            physics = step_n(self.model, state.physics, action,
+                             self.frame_skip)
+        physics = _rescue_divergence(state.physics, physics)
+        obs = self._obs(self._kinematics(physics, state.scenery),
+                        state.scenery, physics)
         reward = self._reward(obs, action, state, physics)
         info = self._info(obs, reward)
         return state.replace(physics=physics, obs=obs, reward=reward,
@@ -176,12 +204,24 @@ class MujocoLikeEnv:
                    if k not in ("qp", "qv")}
         physics = State(qpos=self._as_tensor(env_state["qp"]),
                         qvel=self._as_tensor(env_state["qv"]))
-        obs = self._obs(None, scenery, physics)
+        obs = self._obs(self._kinematics(physics, scenery), scenery, physics)
         return state.replace(physics=physics, scenery=scenery, obs=obs)
 
-    def state_from_qpos_qvel(self, qpos, qvel) -> EnvState:
-        """A fresh EnvState (t = 0, reward 0) at the given (B, nv)
-        coordinates."""
+    def state_from_qpos_qvel(self, qpos, qvel, scenery=None) -> EnvState:
+        """A fresh EnvState (t = 0, reward 0) at the given (B, nq) / (B, nv)
+        coordinates, with the given scenery (a dict of (B, ...) arrays;
+        None: the model's own)."""
         physics = State(qpos=self._as_tensor(qpos).contiguous(),
                         qvel=self._as_tensor(qvel).contiguous())
-        return self._fresh_state(physics, {})
+        scenery = {k: self._as_tensor(v) for k, v in (scenery or {}).items()}
+        return self._fresh_state(physics, scenery)
+
+    def compute_path_rewards(self, paths):
+        """Batched reward recomputation on (N, H, obs) observations:
+        default no r(s, a) = r(s') shift; envs override as the reference
+        does."""
+        paths["rewards"] = self.batched_reward(paths["observations"])
+        return paths
+
+    def batched_reward(self, obs):
+        raise NotImplementedError

@@ -1,17 +1,20 @@
-"""Gym/MuJoCo-parity planar locomotion environments: Hopper, Walker2d,
-HalfCheetah (counterpart of ``mjrl_tpu/envs/gym_suite.py``).
+"""Gym/MuJoCo-parity environments: Hopper, Walker2d, HalfCheetah and
+InvertedPendulum (counterpart of ``mjrl_tpu/envs/gym_suite.py``).
 
 The MJCF models are parsed with the port's own parser
 (``physics/mjcf.py``) from the port's OWN COPIES of the three files,
-``envs/mjcf/{hopper,walker2d,half_cheetah}.xml``.  They are byte-for-byte
+``envs/mjcf/{hopper,walker2d,half_cheetah,inverted_pendulum}.xml``.
+They are byte-for-byte
 the files of the ``gymnasium`` package (1.2.2, MIT licence, notice beside
 them); the JAX package reads them from an installed ``gymnasium`` instead.
 The port carries copies so that running it needs neither ``gymnasium`` nor
 MuJoCo: the machine with the GPU is not promised to have either.
 
-All three take the planar fast path: every control step is one call of
-``ops.cuda_planar.cuda_step_n_batched`` — on a CUDA device one launch of
-the contact/RK4 kernel.
+Hopper, Walker2d and HalfCheetah take the planar fast path: every control
+step is one call of ``ops.cuda_planar.cuda_step_n_batched`` — on a CUDA
+device one launch of the contact/RK4 kernel.  InvertedPendulum runs on the
+penalty solver, which the fast path does not take: it goes through the
+general engine (``physics/step.py``), eager PyTorch.
 
 Semantics follow the gym v3 task definitions:
 - Hopper-v3: obs [qpos[1:], clip(qvel, +-10)] (11,); reward = healthy(1) +
@@ -20,9 +23,10 @@ Semantics follow the gym v3 task definitions:
 - Walker2d-v3: obs (17,); healthy z in (0.8, 2), angle in (-1, 1).
 - HalfCheetah-v3: obs (17,); reward = x-velocity - 0.1 |a|^2; no early
   termination; reset noise U(-0.1, 0.1) on qpos, 0.1 N(0,1) on qvel.
+- InvertedPendulum-v2: obs (4,); reward 1; terminate when |angle| > 0.2;
+  reset noise U(-0.01, 0.01).
 
-Ant, Humanoid and InvertedPendulum need the general 3D engine or the
-penalty path and are not ported yet (ROADMAP.md queue 1).
+Ant and Humanoid need contacts of the general engine (ROADMAP.md M9).
 """
 
 import math
@@ -146,3 +150,23 @@ class HalfCheetahEnv(_GymMujocoEnv):
                  - prev_state.physics.qpos[..., 0]) / self.dt
         return x_vel - self.ctrl_cost * torch.sum(torch.square(action),
                                                   dim=-1)
+
+
+class InvertedPendulumEnv(_GymMujocoEnv):
+    xml_name = "inverted_pendulum.xml"
+    observation_dim = 4
+    frame_skip = 2
+    horizon = 1000
+    reset_noise = 0.01
+    # the JAX package's base-class default: the penalty path
+    default_solver = "penalty"
+
+    def _obs(self, data, scenery, physics):
+        return torch.cat([physics.qpos, physics.qvel], dim=-1)
+
+    def _reward(self, obs, action, prev_state, new_physics):
+        return torch.ones(obs.shape[:-1], dtype=obs.dtype, device=obs.device)
+
+    def _done(self, obs, physics):
+        return (physics.qpos[..., 1].abs() > 0.2) \
+            | ~torch.isfinite(obs).all(-1)

@@ -20,9 +20,9 @@ locomotion models:
 - fixed tendons, <contact> pairs/excludes and <equality> constraints
 
 The parser hands every element to the port's ``ModelBuilder``.  What it
-cannot build yet — free/ball joints, servo actuators and vector
-gears, tendons, explicit contact pairs, equalities — raises
-``NotImplementedError`` there, naming the item (ROADMAP.md M8/M9).
+cannot build yet — servo actuators, vector gears and motors on free/ball
+joints, tendons, explicit contact pairs, equalities — raises
+``NotImplementedError`` there, naming the item (ROADMAP.md M9).
 """
 
 import math

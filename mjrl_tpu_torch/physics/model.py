@@ -6,11 +6,15 @@ dataclass of float64 numpy arrays and static topology tuples — computing
 per-body mass, CoM and principal inertia from geoms like MuJoCo's
 ``inertiafromgeom`` compiler path.
 
-Ported so far: slide and hinge joints, plain motors, geoms (inertia and
-the dynamic contact pairs with their condim, friction, solref/solimp),
-Euler and RK4, both friction cones.  Ball/free joints, servo actuators,
-tendons, equalities and explicit contact pairs belong to the general 3D
-engine (ROADMAP.md M8/M9) and raise ``NotImplementedError``.
+Ported: slide, hinge, ball (3 dofs / 4 qpos: a local wxyz quaternion,
+angular velocity in the post-joint body frame) and free joints (6 dofs /
+7 qpos: world position + wxyz quaternion, on a direct child of the world),
+ball rotation limits, quaternion springs, plain motors on scalar joints,
+geoms (inertia and the dynamic contact pairs with their condim, friction,
+solref/solimp), Euler and RK4, both friction cones.  Servo actuators,
+vector gears (motors on ball/free joints), tendons, equalities, explicit
+contact pairs and the primal Newton solver belong to ROADMAP.md M9 and
+raise ``NotImplementedError``.
 """
 
 from dataclasses import dataclass, field, replace
@@ -83,6 +87,8 @@ class Model:
     ntendon: int = 0
     neq: int = 0
     dof_qpos_idx: Tuple[int, ...] = ()
+    # ball/free joints with nonzero stiffness (quaternion springs)
+    jnt_spring_quat: Tuple[int, ...] = ()
 
     # ---- numeric fields (float64 numpy) ----
     body_pos: Any = None          # (nbody, 3) frame offset in parent frame
@@ -209,14 +215,16 @@ def _invweights(model):
     (trace(Jc M0^-1 Jc^T)/3, trace(Jr M0^-1 Jr^T)/3)`` with Jc/Jr the
     CoM translational/rotational Jacobians.
 
-    A small numpy composite-rigid-body evaluation for trees of slide and
-    hinge joints: at qpos0 every joint sits at its reference, so body
-    frames compose from ``body_pos``/``body_quat`` alone and
-    ``M0 = sum_b m_b Jc_b^T Jc_b + Jr_b^T I_b Jr_b + diag(armature)``."""
+    A small numpy composite-rigid-body evaluation in float64: at qpos0
+    every joint sits at its reference (hinge/slide at ``ref``, ball at the
+    identity, free at the body's own pose), so body frames compose from
+    ``body_pos``/``body_quat`` alone and ``M0 = sum_b m_b Jc_b^T Jc_b +
+    Jr_b^T I_b Jr_b + diag(armature)``.  Each dof is a rotation about a
+    world axis through an anchor (hinge; ball and the free joint's last
+    three: the body frame's axes) or a translation along a world axis
+    (slide; the free joint's first three), as in
+    ``dynamics.compute_cdof``."""
     nb, nv = model.nbody, model.nv
-    if any(t in (FREE, BALL) for t in model.jnt_type):
-        raise NotImplementedError(
-            "free/ball joints need the general 3D engine (ROADMAP.md M8)")
     xpos = np.zeros((nb, 3))
     xmat = np.tile(np.eye(3), (nb, 1, 1))
     for b in range(1, nb):
@@ -226,17 +234,28 @@ def _invweights(model):
         xmat[b] = xmat[pb] @ _np_quat_to_mat(q)
     xipos = np.stack([xpos[b] + xmat[b] @ model.body_ipos[b]
                       for b in range(nb)])
-    # per-dof world axis / anchor and the body the dof belongs to
+    # per-dof world axis / anchor, whether it rotates, and its body
     axis_w = np.zeros((nv, 3))
     anchor_w = np.zeros((nv, 3))
     dof_body = [0] * nv
-    hinge = np.zeros(nv)
+    rot = np.zeros(nv)
     for j in range(model.njnt):
-        d, b = model.jnt_dofadr[j], model.jnt_body[j]
-        axis_w[d] = xmat[b] @ model.jnt_axis[j]
-        anchor_w[d] = xpos[b] + xmat[b] @ model.jnt_pos[j]
-        dof_body[d] = b
-        hinge[d] = 1.0 if model.jnt_type[j] == HINGE else 0.0
+        d, b, jt = model.jnt_dofadr[j], model.jnt_body[j], model.jnt_type[j]
+        anchor = xpos[b] + xmat[b] @ model.jnt_pos[j]
+        if jt == FREE:
+            axis_w[d:d + 3] = np.eye(3)
+            axis_w[d + 3:d + 6] = xmat[b].T
+            anchor_w[d + 3:d + 6] = xpos[b]
+            rot[d + 3:d + 6] = 1.0
+        elif jt == BALL:
+            axis_w[d:d + 3] = xmat[b].T
+            anchor_w[d:d + 3] = anchor
+            rot[d:d + 3] = 1.0
+        else:
+            axis_w[d] = xmat[b] @ model.jnt_axis[j]
+            anchor_w[d] = anchor
+            rot[d] = 1.0 if jt == HINGE else 0.0
+        dof_body[d:d + JNT_NV[jt]] = [b] * JNT_NV[jt]
 
     def ancestors(b):
         out = set()
@@ -254,7 +273,7 @@ def _invweights(model):
         for d in range(nv):
             if dof_body[d] not in anc:
                 continue
-            if hinge[d]:
+            if rot[d]:
                 jr[d] = axis_w[d]
                 jt[d] = np.cross(axis_w[d], xipos[b] - anchor_w[d])
             else:
@@ -294,8 +313,8 @@ def _general_engine_only(item):
     """A ModelBuilder method that refuses ``item``."""
     def raiser(self, *args, **kwargs):
         raise NotImplementedError(
-            f"{item} need the general 3D engine and solver "
-            "(ROADMAP.md M8/M9)")
+            f"{item} need the rest of the general engine and solver "
+            "(ROADMAP.md M9)")
     return raiser
 
 
@@ -353,12 +372,18 @@ class ModelBuilder:
                   ref=0.0, limited=None, solref=(0.02, 1.0),
                   solimp=(0.9, 0.95, 0.001, 0.5, 2.0), margin=0.0,
                   frictionloss=0.0, name=None):
-        if _JNT_TYPES[jnt_type] in (FREE, BALL):
-            raise NotImplementedError(
-                "free/ball joints need the general 3D engine "
-                "(ROADMAP.md M8)")
         if limited is None:
             limited = jnt_range is not None
+        if _JNT_TYPES[jnt_type] == FREE:
+            limited = False
+            if self.bodies[body].parent != 0:
+                raise ValueError(
+                    "free joints require a direct child of the world")
+        if _JNT_TYPES[jnt_type] == BALL and limited:
+            # MuJoCo ball limits constrain the total rotation angle to
+            # range[1] (range[0] must be 0)
+            if jnt_range is None or float(jnt_range[0]) != 0.0:
+                raise ValueError("ball joint range must be (0, max_angle)")
         jid = len(self.joints)
         axis = np.asarray(axis, np.float64)
         axis = axis / np.linalg.norm(axis)
@@ -421,20 +446,25 @@ class ModelBuilder:
                      tendon=None):
         """Plain motor on a slide/hinge joint (``gear`` a scalar or a
         vector whose first element counts).  Servo gains/biases, vector
-        gears on ball/free joints and tendon transmissions belong to the
-        general engine (ROADMAP.md M8) and raise."""
+        gears and motors on ball/free joints, and tendon transmissions
+        belong to ROADMAP.md M9 and raise."""
         if tendon is not None or joint is None:
             raise NotImplementedError(
-                "tendon transmissions need the general 3D engine "
-                "(ROADMAP.md M8)")
+                "tendon transmissions need the rest of the general engine "
+                "(ROADMAP.md M9)")
         if float(gain) != 1.0 or np.any(np.asarray(bias, np.float64) != 0.0):
             raise NotImplementedError(
                 "position/velocity/general actuators (affine gain/bias) "
-                "need the general 3D engine (ROADMAP.md M8)")
+                "need the rest of the general engine (ROADMAP.md M9)")
         gear = np.atleast_1d(np.asarray(gear, np.float64))
         if np.any(gear[1:] != 0.0):
             raise NotImplementedError(
-                "vector gears need the general 3D engine (ROADMAP.md M8)")
+                "vector gears need the rest of the general engine "
+                "(ROADMAP.md M9)")
+        if self.joints[joint]["type"] in (FREE, BALL):
+            raise NotImplementedError(
+                "motors on free/ball joints (vector-gear transmissions) "
+                "need the rest of the general engine (ROADMAP.md M9)")
         self.actuators.append(dict(
             joint=joint, gear=float(gear[0]),
             ctrlrange=np.asarray(ctrlrange, np.float64),
@@ -550,14 +580,19 @@ class ModelBuilder:
                 for b in self.bodies:
                     b.geoms = [remap[g] for g in b.geoms]
 
-    def finalize(self, solver="penalty", dtype=np.float64):
+    def finalize(self, solver="penalty", dtype=np.float64, newton_iters=0):
         """Compile the declarations into a numpy ``Model``.
 
         ``dtype``: every numeric field is rounded to this precision (and
         then held as float64), as the JAX package stores a float32 model
         when an env is built in float32 — its ``timestep`` 0.002 then reads
         0.0020000000949949026, and the constants baked into the kernels
-        follow."""
+        follow.  ``newton_iters > 0`` (the JAX package's primal Newton
+        solver) is not ported and raises."""
+        if newton_iters:
+            raise NotImplementedError(
+                "the primal Newton constraint solver (newton_iters > 0) "
+                "is not ported (ROADMAP.md M9)")
         self._sort_by_body()
         nbody = len(self.bodies)
         njnt = len(self.joints)
@@ -607,18 +642,30 @@ class ModelBuilder:
         qpos0 = np.zeros(nq)
         for ji, x in enumerate(j):
             qa, da = jnt_qposadr[ji], jnt_dofadr[ji]
-            dof_damping[da] = x["damping"]
-            dof_armature[da] = x["armature"]
-            qpos0[qa] = x["ref"]
-            dof_limited[da] = x["limited"]
-            dof_range[da] = x["range"]
-            dof_solref[da] = x["solref"]
-            dof_solimp[da] = x["solimp"]
-            dof_stiffness[da] = x["stiffness"]
-            dof_ref[da] = x["ref"]
-            dof_margin[da] = x["margin"]
-            dof_qpos_idx[da] = qa
-            dof_frictionloss[da] = x["frictionloss"]
+            ndof = JNT_NV[x["type"]]
+            dof_damping[da:da + ndof] = x["damping"]
+            dof_armature[da:da + ndof] = x["armature"]
+            if x["type"] == FREE:
+                body = self.bodies[x["body"]]
+                qpos0[qa:qa + 3] = body.pos
+                qpos0[qa + 3:qa + 7] = body.quat / np.linalg.norm(body.quat)
+                dof_qpos_idx[da:da + ndof] = qa    # unused (unlimited)
+            elif x["type"] == BALL:
+                qpos0[qa] = 1.0                    # identity quaternion
+                dof_qpos_idx[da:da + ndof] = qa    # unused (unlimited)
+            else:
+                qpos0[qa] = x["ref"]
+                dof_limited[da] = x["limited"]
+                dof_range[da] = x["range"]
+                dof_solref[da] = x["solref"]
+                dof_solimp[da] = x["solimp"]
+                dof_stiffness[da] = x["stiffness"]
+                dof_ref[da] = x["ref"]
+                dof_margin[da] = x["margin"]
+                dof_qpos_idx[da] = qa
+            # dry friction applies to every dof but the free joint's
+            if x["type"] != FREE:
+                dof_frictionloss[da:da + ndof] = x["frictionloss"]
 
         pairs_, pair_condim_ = self._contact_pairs()
 
@@ -644,6 +691,9 @@ class ModelBuilder:
             contact_pair_condim=pair_condim_,
             actuator_simple=_actuators_simple(self.actuators, j),
             dof_qpos_idx=tuple(int(i) for i in dof_qpos_idx),
+            jnt_spring_quat=tuple(
+                ji for ji, x in enumerate(j)
+                if x["type"] in (BALL, FREE) and x["stiffness"]),
             body_pos=arr([b.pos for b in self.bodies]),
             body_quat=arr([b.quat for b in self.bodies]),
             body_ipos=arr(ipos), body_iquat=arr(iquat),

@@ -68,7 +68,8 @@ def rollout_batch(env, policy, params, transforms, generator, num_traj,
     padded behind a validity ``mask``.  With it, rows run on through resets:
     ``rewards`` are unmasked, ``mask`` is all ones, ``dones`` (num_traj, T)
     marks each episode's last step, ``terminated`` is ``dones[:, -1] > 0``
-    and ``last_obs`` is the obs after the last step (before any reset).
+    and ``last_obs`` is the obs of the state the rows carry on from: after
+    the last step, and after the reset in rows whose episode ended there.
 
     For tests only: ``state0`` starts from a given EnvState instead of
     ``env.reset``; ``noise`` (T, num_traj, act_dim) is used instead of
@@ -119,7 +120,6 @@ def rollout_batch(env, policy, params, transforms, generator, num_traj,
         info = ns.info
         if autoreset:
             rewards[:, t] = ns.reward
-            last_obs = ns.obs
             if terminating:
                 # rows whose episode ended start afresh in the next step
                 dones[:, t] = ns.done.to(dt)
@@ -145,7 +145,7 @@ def rollout_batch(env, policy, params, transforms, generator, num_traj,
             agent_mean=means,
             agent_log_std=params["log_std"].to(dt).expand(B, T, A),
             mask=mask, dones=dones, env_infos=env_infos,
-            terminated=dones[:, -1] > 0, last_obs=last_obs)
+            terminated=dones[:, -1] > 0, last_obs=s.obs)
     return dict(
         observations=observations,
         actions=actions,

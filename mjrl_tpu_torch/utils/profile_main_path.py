@@ -4,14 +4,17 @@
         [--autoreset] [--out DIR]
 
 Runs the NPG iteration of ``--env`` (default ``mjrl_swimmer-v0``; also
-``Hopper-v3``, ``Walker2d-v3``, ``HalfCheetah-v3``) at the size users train
-at (4096 environments x the env's own horizon, a 64-64 policy; with
+``Hopper-v3``, ``Walker2d-v3``, ``HalfCheetah-v3`` on the planar kernels,
+and ``mjrl_point_mass-v0``, ``mjrl_reacher_7dof-v0``,
+``InvertedPendulum-v2`` on the general engine) at the size users train at
+(4096 environments x the env's own horizon, a 64-64 policy; with
 ``--autoreset``, episodes restart inside the rollout) and prints one JSON
 object per line:
 
 - ``rollout``: wall seconds of a rollout, the device time summed by kernel
-  name from ``torch.profiler`` over a window of control steps, and the share
-  of the window in which the device was busy;
+  name from ``torch.profiler`` over a window of control steps (50, or the
+  env's horizon if shorter), the device launches per control step and the
+  share of the window in which the device was busy;
 - ``iteration``: the wall seconds of the phases of three whole iterations
   (sampling, update, baseline fit);
 - ``vf_fit``: one fit of the job scripts' MLP baseline (128-128, batch 64,
@@ -41,7 +44,7 @@ from mjrl_tpu_torch.models.policies import MLP
 from mjrl_tpu_torch.samplers.rollout import rollout_batch
 
 NUM_ENVS, WINDOW = 4096, 50
-# NPG step size per env (the examples' values)
+# NPG step size per env (the examples' values; else 0.05)
 STEP_SIZE = {"mjrl_swimmer-v0": 0.1}
 
 
@@ -67,20 +70,21 @@ def profile_rollout(env, policy, autoreset=False):
                                    policy.transforms, gen, NUM_ENVS,
                                    horizon=T, autoreset=autoreset)
     HORIZON = env.horizon
-    roll(WINDOW)                                   # builds the kernel, warms
+    window = min(WINDOW, HORIZON)
+    roll(window)                                   # builds the kernel, warms
     _, seconds = _timed(lambda: roll(HORIZON))
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        _, window_s = _timed(lambda: roll(WINDOW))
+        _, window_s = _timed(lambda: roll(window))
     rows = device_rows(prof)
     busy_ms = sum(r[1] for r in rows)
     return {"phase": "rollout", "num_envs": NUM_ENVS, "horizon": HORIZON,
             "autoreset": autoreset, "seconds": seconds,
             "control_steps_per_s": NUM_ENVS * HORIZON / seconds,
-            "window_steps": WINDOW, "window_ms": window_s * 1e3,
+            "window_steps": window, "window_ms": window_s * 1e3,
             "device_busy_ms": busy_ms,
             "device_busy_share": busy_ms / (window_s * 1e3),
-            "device_launches_per_step": sum(r[2] for r in rows) / WINDOW,
+            "device_launches_per_step": sum(r[2] for r in rows) / window,
             "top_kernels": [{"name": n[:80], "ms": ms, "calls": c}
                             for n, ms, c in rows[:12]]}, prof
 

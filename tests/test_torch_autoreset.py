@@ -136,10 +136,10 @@ def jax_autoreset_loop(jenv, jcfg, jparams, jtr, state0, noise, resets):
                      ("rewards", ns.reward), ("agent_mean", mean),
                      ("dones", ns.done.astype(jnp.float64))):
             out[k].append(np.asarray(v))
-        last_obs = ns.obs
         s = where(ns.done, jax_states(jenv, resets[0][t], resets[1][t]), ns)
     out = {k: np.stack(v, axis=1) for k, v in out.items()}
-    out["last_obs"] = np.asarray(last_obs)
+    # the final carry: rows that end at the last step carry a fresh state
+    out["last_obs"] = np.asarray(s.obs)
     out["terminated"] = out["dones"][:, -1] > 0
     return out
 

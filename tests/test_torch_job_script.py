@@ -2,10 +2,9 @@
 
 - ``build_agent`` of ``examples/torch_policy_opt_job_script.py`` on each of
   the four ``examples/example_configs/*.json`` gives the classes and
-  hyper-parameters the JAX script's ``build_agent`` gives (``point_mass``
-  is not ported: its agent's class and arguments are compared, and building
-  it names the missing env); TRPO, which the JAX script lacks, against the
-  JAX package's ``TRPO`` with the same arguments.
+  hyper-parameters the JAX script's ``build_agent`` gives; TRPO, which the
+  JAX script lacks, against the JAX package's ``TRPO`` with the same
+  arguments.
 - The slice as a whole: one whole iteration of NPG + ``MLPBaseline`` on an
   autoreset Hopper batch in both packages, from the same weights and draws
   (the baseline fit's permutations are the JAX package's own): returns and
@@ -95,10 +94,6 @@ def test_build_agent_matches_the_jax_script(scripts, name):
     jagent = jscript.build_agent(job)
     cls, kw = tscript.agent_class_and_kwargs(job)
     same_agent_settings(jagent, cls, kw)
-    if name == "point_mass_npg":            # ROADMAP.md M8
-        with pytest.raises(KeyError, match="mjrl_point_mass-v0"):
-            tscript.build_agent(job, device="cpu")
-        return
     tagent = tscript.build_agent(job, device="cpu")
     assert type(tagent) is cls and tagent.device.type == "cpu"
     for a in AGENT_ATTRS:

@@ -140,9 +140,12 @@ _BODY = ('<mujoco><worldbody><body><joint name="j" type="{jt}"/>'
          '<geom size="0.1"/></body></worldbody>{extra}</mujoco>')
 
 
+_MOTOR = '<actuator><motor joint="j"/></actuator>'
+
+
 @pytest.mark.parametrize("jt, extra, match", [
-    ("free", "", "free/ball"),
-    ("ball", "", "free/ball"),
+    ("free", _MOTOR, "free/ball"),
+    ("ball", _MOTOR, "free/ball"),
     ("hinge", '<actuator><position joint="j" kp="2"/></actuator>',
      "position/velocity/general"),
     ("hinge", '<tendon><fixed name="t"><joint joint="j" coef="1"/></fixed>'
