@@ -72,6 +72,35 @@ device's busy share over a profiled window (torch.profiler):
             (40 paths x 25, 10 evaluation rollouts): KL within the guard,
             success_rate and eval_success logged and finite.
 
+The model-based branch, DAPG and MPC (M10), each at the full width of its
+shipped configuration with only its counts cut; each prints its seconds,
+peak device memory and kernel launches:
+
+17. train_model_accel_point_mass  mjrl_tpu_torch/.../configs/point_mass.json
+            through run_model_accel_npg (4-member 256-256 ensemble, 32-32
+            policy, 100 imagined paths x 25 per update, 4 updates an
+            iteration), 2 iterations and 2 evaluation episodes: every
+            member's losses logged, finite, num_samples 500 then 250; the
+            ms per Adam step of the stacked 4-member fit with its launches.
+18. train_model_accel_reacher  reacher.json the same way, 1 iteration
+            (2500 samples, 5 updates of 250 x 4 imagined paths x 50 steps),
+            1 evaluation episode.
+19. dapg_point_mass  examples/torch_dapg_point_mass.py: 3 NPG iterations of
+            the expert, 10 demos, BC, 3 DAPG iterations (40 paths each), 2
+            evaluation episodes.
+20. mbac_point_mass  one MBAC train_step (one 25-step path labelled by
+            MBAC's default MPCActor: H 10, 25 candidates in the real
+            engine); seconds per MPCActor action.
+21. mpc_actor_swimmer  3 MPCActor actions on the Swimmer: H = 10 launches
+            of K1 per action (all candidates in one launch per step), each
+            launch held against the plain step on its own inputs (float32
+            at K1's tolerances, and the same inputs in float64).
+22. learned_mpc_point_mass  run_model_learning_mpc with 4 models, 2
+            iterations of 2 MPC episodes; seconds per MPCPolicy action.
+23. m10_card_vs_cpu  float64, card against CPU: a 4-member 256-256 stacked
+            fit (injected permutations, 11 Adam steps), one MPCPolicy action
+            (injected candidates), one DAPG update.
+
 Each phase's launches are counted from just before it to just after.  The
 last line is {"ok": true, "device": {...}}.
 """
@@ -130,7 +159,7 @@ CONTACT_TOL = {torch.float64: (1e-9, 1e-9), torch.float32: (3e-4, 3e-3)}
 
 
 def emit(obj):
-    print(json.dumps(obj), flush=True)
+    print(json.dumps(obj, default=float), flush=True)
 
 
 def time_ms(fn, reps):
@@ -764,14 +793,18 @@ def phase_train(env_id, step_size, horizon, kernel, phase):
     return counts[kernel]
 
 
-def job_script():
-    """The port's job script, examples/torch_policy_opt_job_script.py."""
+def example_module(name):
+    """The module of examples/<name>.py."""
     spec = importlib.util.spec_from_file_location(
-        "torch_policy_opt_job_script",
-        os.path.join(EXAMPLES, "torch_policy_opt_job_script.py"))
+        name, os.path.join(EXAMPLES, f"{name}.py"))
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def job_script():
+    """The port's job script, examples/torch_policy_opt_job_script.py."""
+    return example_module("torch_policy_opt_job_script")
 
 
 def check_log(log, phase):
@@ -1201,6 +1234,414 @@ def phase_train_job_point_mass_npg():
     return counts
 
 
+# ---------------------------------------------------------------------------
+# M10: DAPG, MPC and the model-based branch (general engine and K1)
+# ---------------------------------------------------------------------------
+
+M10_CONFIGS = os.path.join(HERE, "mjrl_tpu_torch", "algos", "model_accel",
+                           "run_experiments", "configs")
+# float64, card against CPU: a stacked fit (11 Adam steps) and one MPPI
+# plan differ by summation order only (1e-9, relative to the largest
+# weight); one DAPG update amplifies that through ten CG iterations (1e-8,
+# as tests/test_torch_dapg.py holds it to the JAX package)
+M10_CARD_TOL = 1e-9
+M10_DAPG_TOL = 1e-8
+
+
+def adam_step_probe(ens, n, mb):
+    """A stacked fit of ``ens``'s width on n random samples, one epoch:
+    -> (ms per Adam step, device launches per step, busy share)."""
+    g = torch.Generator(device="cuda").manual_seed(0)
+    d, m = ens.members[0].state_dim, ens.members[0].act_dim
+    s = torch.randn((n, d), generator=g, device="cuda")
+    a = torch.randn((n, m), generator=g, device="cuda")
+    sp = s + 0.1 * torch.randn((n, d), generator=g, device="cuda")
+    steps = n // mb
+    ens.fit_dynamics(s, a, sp, mb, 1)                  # warms up
+    torch.cuda.synchronize()
+    t0 = time.time()
+    ens.fit_dynamics(s, a, sp, mb, 1)
+    torch.cuda.synchronize()
+    ms = (time.time() - t0) * 1e3 / steps
+    per_step, busy, _ = profiled_window(
+        lambda: ens.fit_dynamics(s, a, sp, mb, 1), steps)
+    return ms, per_step, busy
+
+
+def phase_train_model_accel(name, num_iter, eval_rollouts):
+    """A shipped model_accel config through its runner, full width, with
+    ``num_iter`` outer iterations and ``eval_rollouts`` evaluation
+    episodes -> launches."""
+    from mjrl_tpu_torch.algos.model_accel.nn_dynamics import \
+        WorldModelEnsemble
+    from mjrl_tpu_torch.algos.model_accel.run_experiments import \
+        run_model_accel_npg
+    phase = f"train_model_accel_{name}"
+    with open(os.path.join(M10_CONFIGS, f"{name}.json")) as f:
+        job = json.load(f)
+    job.update(num_iter=num_iter, eval_rollouts=eval_rollouts)
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, phase)
+        with contextlib.redirect_stdout(sys.stderr):
+            (agent, logger), counts, seconds = run_counted(
+                lambda: run_model_accel_npg.run(out, job))
+        for f in ("job_data.json", os.path.join("logs", "log.csv"),
+                  os.path.join("iterations", "agent_final.pickle"),
+                  os.path.join("iterations", "best_policy.pickle")):
+            if not os.path.exists(os.path.join(out, f)):
+                raise AssertionError(f"{phase}: the runner did not write {f}")
+    peak = torch.cuda.max_memory_allocated()
+    if counts != NO_LAUNCHES:
+        raise AssertionError(f"{phase}: launched {counts}")
+    M, T = job["num_models"], job["horizon"]
+    log, alog = logger.log, agent.logger.log
+    # every member's losses, beside the runner's other keys (the keys
+    # themselves are held to the JAX runner's by the CPU tests)
+    if not {f"{k}_{i}" for k in ("dyn_loss", "dyn_loss_gen")
+            for i in range(M)} | {"num_samples", "eval_score"} <= set(log):
+        raise AssertionError(f"{phase}: log keys {sorted(log)}")
+    for lg, n in ((log, num_iter), (alog, num_iter * job["inner_steps"])):
+        for k, v in lg.items():
+            if len(v) != n or not np.all(np.isfinite(v)):
+                raise AssertionError(f"{phase}: {k} missing or not finite: "
+                                     f"{v}")
+    horizon = agent.fenv.horizon
+    want = [job["init_samples"]] + [job["iter_samples"]] * (num_iter - 1)
+    if log["num_samples"] != want:
+        raise AssertionError(f"{phase}: num_samples {log['num_samples']}, "
+                             f"expected {want}")
+    if alog["num_samples"] != [job["update_paths"] * M * T] \
+            * (num_iter * job["inner_steps"]):
+        raise AssertionError(f"{phase}: imagined samples "
+                             f"{alog['num_samples']}")
+    ens = agent.learned_model[0]._ens
+    if agent.device.type != "cuda" or ens.device.type != "cuda" \
+            or ens._dyn["params"]["layers.0.weight"].shape \
+            != (M, job["hidden_size"][0], agent.fenv.observation_dim
+                + agent.fenv.action_dim):
+        raise AssertionError(f"{phase}: the ensemble is not stacked on the "
+                             "card at its width")
+    # each fit takes every buffered path's transitions (length - 1 each)
+    rows = np.cumsum([w - w // horizon for w in want])
+    fit_steps = [int(job["fit_epochs"] * (r // job["fit_mb_size"]))
+                 for r in rows]
+    fresh = WorldModelEnsemble(M, agent.fenv.observation_dim,
+                               agent.fenv.action_dim,
+                               hidden_size=tuple(job["hidden_size"]))
+    n = int(rows[-1])
+    ms, launches, busy = adam_step_probe(fresh, n, job["fit_mb_size"])
+    emit({"phase": phase, "config": f"{name}.json", "num_iter": num_iter,
+          "eval_rollouts": eval_rollouts, "seconds": seconds,
+          "kernel_launches": counts, "num_models": M,
+          "hidden_size": job["hidden_size"],
+          "policy_size": job["policy_size"],
+          "num_samples": log["num_samples"],
+          "imagined_samples_per_update": alog["num_samples"][0],
+          "data_collect_time": log["data_collect_time"],
+          "model_update_time": log["model_update_time"],
+          "model_adam_steps": fit_steps,
+          "policy_update_time": log["policy_update_time"],
+          "eval_log_time": log["eval_log_time"],
+          "iter_time": log["iter_time"],
+          "dyn_loss": [log[f"dyn_loss_{i}"] for i in range(M)],
+          "eval_score": log["eval_score"],
+          "rollout_score": log["rollout_score"],
+          "kl_dist": alog["kl_dist"],
+          "adam_step_ms_4_member_fit": ms,
+          "adam_step_probe_samples": n,
+          "device_launches_per_adam_step": launches,
+          "adam_step_device_busy_share": busy,
+          "peak_device_memory_bytes": peak})
+    return counts
+
+
+def phase_dapg_point_mass():
+    example = example_module("torch_dapg_point_mass")
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = ["--niter", str(NITER), "--finetune_niter", str(NITER),
+                "--eval_episodes", "2", "--job", tmp]
+        with contextlib.redirect_stdout(sys.stderr):
+            out, counts, seconds = run_counted(lambda: example.main(argv))
+    if counts != NO_LAUNCHES:
+        raise AssertionError(f"dapg_point_mass: launched {counts}")
+    dapg, expert = out["dapg"], out["expert"]
+    for agent in (dapg, expert):
+        check_log({k: v for k, v in agent.logger.log.items()
+                   if k != "eval_success"}, "dapg_point_mass")
+        if agent.device.type != "cuda":
+            raise AssertionError("dapg_point_mass: not on the card")
+    demos = out["demo_paths"]
+    if dapg.iter_count != NITER or len(demos) != 10 \
+            or dapg._demo_obs.shape[0] != 10 * 25 \
+            or dapg.logger.log["num_samples"] != [40 * 25] * NITER \
+            or not np.isfinite([out["demo_return"], out["bc_score"],
+                                out["final_score"]]).all():
+        raise AssertionError("dapg_point_mass: wrong counts or scores")
+    emit({"phase": "dapg_point_mass", "seconds": seconds,
+          "kernel_launches": counts, "expert_niter": NITER,
+          "finetune_niter": NITER, "num_traj": 40, "num_demos": len(demos),
+          "eval_episodes": 2, "iter_count": dapg.iter_count,
+          "demo_return": out["demo_return"], "bc_score": out["bc_score"],
+          "final_score": out["final_score"],
+          "expert_time_sampling": expert.logger.log["time_sampling"],
+          "dapg_time_sampling": dapg.logger.log["time_sampling"],
+          "dapg_time_npg": dapg.logger.log["time_npg"],
+          "dapg_kl_dist": dapg.logger.log["kl_dist"],
+          "dapg_stoc_pol_mean": dapg.logger.log["stoc_pol_mean"],
+          "peak_device_memory_bytes": torch.cuda.max_memory_allocated()})
+    return counts
+
+
+def time_actions(get_action, arg, n=3):
+    """Seconds per call of an MPC policy's ``get_action`` (after one)."""
+    get_action(arg)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    for _ in range(n):
+        get_action(arg)
+    torch.cuda.synchronize()
+    return (time.time() - t0) / n
+
+
+def phase_mbac_point_mass():
+    from mjrl_tpu_torch.algos import MBAC
+    e = GymEnv("mjrl_point_mass-v0")
+    policy = MLP(e.spec, hidden_sizes=(32, 32), seed=1)
+    torch.cuda.reset_peak_memory_stats()
+    agent = MBAC("mjrl_point_mass-v0", policy, seed=123)
+    actor = agent.mpc_policy
+    if (actor.H, actor.num_candidates, actor.kappa) != (10, 25, 10.0) \
+            or list(actor.filter_coefs[1:]) != [0.05, 0.0, 0.0]:
+        raise AssertionError("mbac_point_mass: not MBAC's default MPC")
+    perf, counts, seconds = run_counted(lambda: agent.train_step(num_traj=1))
+    if counts != NO_LAUNCHES:
+        raise AssertionError(f"mbac_point_mass: launched {counts}")
+    path = agent.expert_paths[0]
+    if len(agent.expert_paths) != 1 or path["observations"].shape != (25, 6) \
+            or path["expert_actions"].shape != (25, 2) \
+            or not np.isfinite(path["expert_actions"]).all() \
+            or not np.isfinite(perf) \
+            or not np.isfinite(agent.logger.log["loss_after"][-1]):
+        raise AssertionError("mbac_point_mass: wrong path or loss")
+    per_action = time_actions(actor.get_action, path["states"][-1], 2)
+    emit({"phase": "mbac_point_mass", "seconds": seconds,
+          "kernel_launches": counts, "H": actor.H,
+          "candidates": actor.num_candidates, "path_steps": 25,
+          "seconds_per_mpc_actor_action": per_action,
+          "stoc_pol_perf": float(perf),
+          "bc_loss_before": agent.logger.log["loss_before"][-1],
+          "bc_loss_after": agent.logger.log["loss_after"][-1],
+          "peak_device_memory_bytes": torch.cuda.max_memory_allocated()})
+    return counts
+
+
+def phase_mpc_actor_swimmer(kernel):
+    """MBAC's default planner (H 10, 25 candidates) shooting in the
+    Swimmer: every horizon step is one launch of K1 for all candidates.
+    Each launch's inputs and outputs on this path are kept, and K1 is held
+    against the plain step on them: its float32 outputs at K1's float32
+    tolerances, and the same inputs in float64 (comparison launches, after
+    the counted run) at its float64 ones.  The worst float32 error joins
+    ``kernel``'s ``max_abs_err``."""
+    from mjrl_tpu_torch.envs import base as env_base
+    from mjrl_tpu_torch.models.mpc_actor import MPCActor
+    e = GymEnv("mjrl_swimmer-v0")
+    e.reset(seed=0)
+    actor = MPCActor(e, H=10, paths_per_cpu=25, kappa=10.0, gamma=1.0,
+                     filter_coefs=[np.ones(e.action_dim), 0.05, 0.0, 0.0])
+    launched = env_base.cuda_step_n_batched
+    calls = []
+
+    def kept(p, q, v, u, n, lanes=None):
+        gq, gv = launched(p, q, v, u, n, lanes=lanes)
+        calls.append((p, n, lanes, q.clone(), v.clone(), u.clone(),
+                      gq.clone(), gv.clone()))
+        return gq, gv
+
+    counts, seconds = {SMOOTH: 0, CONTACT: 0}, []
+    env_base.cuda_step_n_batched = kept
+    try:
+        for _ in range(3):
+            a, c, s = run_counted(
+                lambda: actor.get_action(e.get_env_state()))
+            counts = {k: counts[k] + c[k] for k in counts}
+            seconds.append(s)
+            if a.shape != (e.action_dim,) or not np.isfinite(a).all():
+                raise AssertionError(f"mpc_actor_swimmer: action {a}")
+            # the real env's own step is no part of the planner's path
+            env_base.cuda_step_n_batched = launched
+            e.step(a)
+            env_base.cuda_step_n_batched = kept
+    finally:
+        env_base.cuda_step_n_batched = launched
+    want = {SMOOTH: 3 * actor.H, CONTACT: 0}
+    if counts != want or len(calls) != 3 * actor.H:
+        raise AssertionError(f"mpc_actor_swimmer: launched {counts}, "
+                             f"expected {want}")
+    errs = {"float32": 0.0, "float64": 0.0}
+    for p, n, lanes, q, v, u, gq, gv in calls:
+        if q.shape[0] != actor.num_candidates or q.dtype != torch.float32:
+            raise AssertionError(f"mpc_actor_swimmer: K1 given "
+                                 f"{tuple(q.shape)} {q.dtype}")
+        for dtype, (tol_q, tol_v) in ((torch.float32, (2e-5, 2e-4)),
+                                      (torch.float64, (1e-9, 1e-9))):
+            tq, tv, tu = (x.to(dtype) for x in (q, v, u))
+            if dtype == torch.float32:
+                kq, kv = gq, gv
+            else:
+                kq, kv = cuda_planar.cuda_step_n_batched(
+                    p, tq, tv, tu, n, lanes=lanes)
+            rq, rv = step_n_arrays(p, tq, tv, tu, n)
+            torch.testing.assert_close(kq, rq, rtol=tol_q, atol=tol_q)
+            torch.testing.assert_close(kv, rv, rtol=tol_v, atol=tol_v)
+            key = str(dtype).split(".")[-1]
+            errs[key] = max(errs[key], (kq - rq).abs().max().item(),
+                            (kv - rv).abs().max().item())
+    kernel["max_abs_err"] = max(kernel["max_abs_err"], errs["float32"])
+    kernel["checks"].append({"path": "mpc_actor_swimmer",
+                             "B": actor.num_candidates,
+                             "launches_checked": len(calls),
+                             "max_abs_err": errs,
+                             "rtol_atol_q": {"float32": 2e-5,
+                                             "float64": 1e-9},
+                             "rtol_atol_v": {"float32": 2e-4,
+                                             "float64": 1e-9}})
+    emit({"phase": "mpc_actor_swimmer", "actions": 3, "H": actor.H,
+          "candidates": actor.num_candidates, "kernel_launches": counts,
+          "k1_launches_checked": len(calls), "k1_max_abs_err": errs,
+          "seconds_per_mpc_actor_action": seconds,
+          "seconds": sum(seconds)})
+    return counts
+
+
+def phase_learned_mpc_point_mass():
+    from mjrl_tpu_torch.algos.model_accel.run_experiments import \
+        run_model_learning_mpc
+    job = dict(env_name="mjrl_point_mass-v0", num_models=4, num_iter=2,
+               samples_per_iter=2)
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as tmp:
+        with contextlib.redirect_stdout(sys.stderr):
+            (model, mpc, logger), counts, seconds = run_counted(
+                lambda: run_model_learning_mpc.run(tmp, job))
+    if counts != NO_LAUNCHES:
+        raise AssertionError(f"learned_mpc_point_mass: launched {counts}")
+    log = logger.log
+    if sorted(log) != ["dyn_loss", "iteration", "rollout_score"] \
+            or log["iteration"] != [0, 1] \
+            or not np.all(np.isfinite(log["dyn_loss"]
+                                      + log["rollout_score"])) \
+            or len(mpc.fitted_model) != 4 \
+            or model._dyn["params"]["layers.0.weight"].shape != (4, 256, 8):
+        raise AssertionError(f"learned_mpc_point_mass: {log}")
+    obs = np.array([0.3, -0.2, 0.0, 0.1, -0.5, 0.6])
+    per_action = time_actions(mpc.get_action, obs)
+    per_action_launches, busy, _ = profiled_window(
+        lambda: mpc.get_action(obs), 1)
+    # the second fit's data: 10 warm-up paths and 2 MPC paths, 24 rows each
+    ms, launches, fit_busy = adam_step_probe(model, 12 * 24, 64)
+    emit({"phase": "learned_mpc_point_mass", "seconds": seconds,
+          "kernel_launches": counts, "num_models": 4, "num_iter": 2,
+          "samples_per_iter": 2, "plan_horizon": mpc.plan_horizon,
+          "plan_paths": mpc.num_traj, "dyn_loss": log["dyn_loss"],
+          "rollout_score": log["rollout_score"],
+          "seconds_per_mpc_policy_action": per_action,
+          "device_launches_per_mpc_policy_action": per_action_launches,
+          "mpc_policy_device_busy_share": busy,
+          "adam_step_ms_4_member_fit": ms,
+          "device_launches_per_adam_step": launches,
+          "adam_step_device_busy_share": fit_busy,
+          "peak_device_memory_bytes": torch.cuda.max_memory_allocated()})
+    return counts
+
+
+def m10_card_vs_cpu():
+    """float64, the same inputs on the card and on the CPU: a 4-member
+    stacked fit at 256-256 (injected permutations, 11 Adam steps), one
+    MPCPolicy plan (injected candidates) and one DAPG update -> max abs
+    error by quantity."""
+    from mjrl_tpu_torch.algos import DAPG, MPCPolicy, WorldModelEnsemble
+    from mjrl_tpu_torch.baselines import LinearBaseline as LB
+    rng = np.random.RandomState(23)
+    n, D, A, M = 704, 6, 2, 4
+    s = rng.normal(size=(n, D))
+    a = rng.normal(size=(n, A))
+    sp = s + 0.1 * np.tanh(s @ rng.normal(size=(D, D))) \
+        + 0.05 * a @ rng.normal(size=(A, D))
+    perms = np.stack([np.stack([rng.permutation(n)]) for _ in range(M)])
+    eps = rng.normal(size=(32, 10, A))
+    obs0 = rng.normal(size=D)
+    pol_np = convert.params_to_numpy(MLP(
+        PointMassEnv(device="cpu").spec, hidden_sizes=(32, 32), seed=2,
+        dtype=torch.float64, device="cpu").params)
+    errs, out = {}, {}
+    for dev in ("cuda", "cpu"):
+        ens = WorldModelEnsemble(M, D, A, seed=5, hidden_size=(256, 256),
+                                 device="cpu", dtype=torch.float64)
+        if dev == "cuda":
+            card = WorldModelEnsemble(M, D, A, seed=5,
+                                      hidden_size=(256, 256), device=dev,
+                                      dtype=torch.float64)
+            for src, dst in zip(ens, card):
+                convert.world_model_from_numpy(
+                    dst, **convert.world_model_to_numpy(src))
+            ens = card
+        losses = ens.fit_dynamics(s, a, sp, 64, 1, perms=perms)
+        weights = {k: v.cpu() for k, v in ens._dyn["params"].items()}
+        env = GymEnv("mjrl_point_mass-v0", device=dev,
+                     env_kwargs={"dtype": torch.float64})
+        mpc = MPCPolicy(env, plan_horizon=10, plan_paths=32, kappa=5.0,
+                        gamma=0.99, fitted_model=ens, omega=5.0)
+        action = mpc.get_action(obs0, eps=eps)
+        # the CPU policy's weights on both devices (a CUDA generator draws
+        # other numbers than a CPU one)
+        pol = convert.policy_params_from_numpy(
+            MLP(env.spec, hidden_sizes=(32, 32), dtype=torch.float64,
+                device=dev), pol_np)
+        dg = np.random.RandomState(29)
+        demos = [dict(observations=dg.normal(size=(25, D)),
+                      actions=dg.normal(size=(25, A))) for _ in range(3)]
+        dapg = DAPG(env, pol, LB(env.spec, dtype=torch.float64, device=dev),
+                    demo_paths=demos, normalized_step_size=0.05, seed=1,
+                    device=dev)
+        bg = np.random.RandomState(31)
+        batch = {k: torch.tensor(v, device=dev) for k, v in dict(
+            observations=bg.normal(size=(40, 25, D)),
+            actions=bg.normal(size=(40, 25, A)),
+            rewards=bg.normal(size=(40, 25)), mask=np.ones((40, 25)),
+            terminated=np.zeros(40, bool)).items()}
+        batch["env_infos"] = {}
+        _, process_fn, update_fn, _ = dapg._get_phases(40, 25, 0.95, 0.97)
+        dapg._train_from_batch(batch, process_fn, update_fn)
+        out[dev] = dict(losses=torch.tensor(losses), weights=weights,
+                        action=torch.tensor(action),
+                        dapg=convert.params_to_numpy(pol.params))
+    for k in ("losses", "action"):
+        torch.testing.assert_close(out["cuda"][k], out["cpu"][k],
+                                   rtol=M10_CARD_TOL, atol=M10_CARD_TOL)
+        errs[k] = (out["cuda"][k] - out["cpu"][k]).abs().max().item()
+    errs["fit_weights"] = max(
+        (out["cuda"]["weights"][k] - v).abs().max().item()
+        for k, v in out["cpu"]["weights"].items())
+    flat = lambda p: np.concatenate([np.ravel(l[x]) for l in p["layers"]
+                                     for x in ("w", "b")]
+                                    + [p["log_std"]])
+    errs["dapg_params"] = float(np.abs(flat(out["cuda"]["dapg"])
+                                       - flat(out["cpu"]["dapg"])).max())
+    scale = lambda x: max(1.0, x)
+    if errs["fit_weights"] > M10_CARD_TOL * scale(max(
+            v.abs().max().item() for v in out["cpu"]["weights"].values())) \
+            or errs["dapg_params"] > M10_DAPG_TOL * scale(np.abs(flat(
+                out["cpu"]["dapg"])).max()):
+        raise AssertionError(f"M10 card vs CPU: {errs}")
+    emit({"phase": "m10_card_vs_cpu", "dtype": "float64",
+          "tol": M10_CARD_TOL, "dapg_tol": M10_DAPG_TOL,
+          "fit_adam_steps": n // 64,
+          "num_models": M, "hidden_size": [256, 256], "max_abs_err": errs})
+
+
 def main():
     t_start = time.time()
     phase = "device"
@@ -1257,6 +1698,29 @@ def main():
             kernel["launches_by_path"][phase] = counts[SMOOTH]
             contact["launches_by_path"][phase] = counts[CONTACT]
         emit({"phase": "general_engine", "phase_seconds": phase_seconds,
+              "seconds": sum(phase_seconds.values())})
+        # M10: the model-based branch, DAPG and MPC
+        phase_seconds = {}
+        for phase, fn in (
+                ("train_model_accel_point_mass",
+                 lambda: phase_train_model_accel("point_mass", 2, 2)),
+                ("train_model_accel_reacher",
+                 lambda: phase_train_model_accel("reacher", 1, 1)),
+                ("dapg_point_mass", phase_dapg_point_mass),
+                ("mbac_point_mass", phase_mbac_point_mass),
+                ("mpc_actor_swimmer",
+                 lambda: phase_mpc_actor_swimmer(kernel)),
+                ("learned_mpc_point_mass", phase_learned_mpc_point_mass)):
+            t0 = time.time()
+            counts = fn()
+            phase_seconds[phase] = time.time() - t0
+            kernel["launches_by_path"][phase] = counts[SMOOTH]
+            contact["launches_by_path"][phase] = counts[CONTACT]
+        phase = "m10_card_vs_cpu"
+        t0 = time.time()
+        m10_card_vs_cpu()
+        phase_seconds[phase] = time.time() - t0
+        emit({"phase": "m10", "phase_seconds": phase_seconds,
               "seconds": sum(phase_seconds.values())})
     except Exception:
         traceback.print_exc()

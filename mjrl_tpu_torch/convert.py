@@ -28,7 +28,7 @@ def layers_from_numpy(layers, dtype=torch.float32, device=None):
     for i, layer in enumerate(layers):
         out[f"layers.{i}.weight"] = torch.as_tensor(
             np.asarray(layer["w"]).T.copy(), dtype=dtype, device=device)
-        out[f"layers.{i}.bias"] = torch.as_tensor(
+        out[f"layers.{i}.bias"] = torch.tensor(
             np.asarray(layer["b"]), dtype=dtype, device=device)
     return out
 
@@ -101,3 +101,59 @@ def mlp_baseline_from_numpy(baseline, layers):
 def mlp_baseline_to_numpy(baseline):
     """-> the port MLPBaseline's layers in the JAX layout."""
     return layers_to_numpy(baseline.state[0])
+
+
+# -- world models (``algos/model_accel/nn_dynamics.py``) ----------------------
+#
+# A JAX world model crosses as numpy: its ``dyn_params`` / ``rew_params``
+# layer lists, its transform dicts, and each Adam state as ``{"count": int,
+# "mu": layer list, "nu": layer list}`` (the ``ScaleByAdamState`` of the
+# optax state, which the caller unpacks).
+
+def _tree_from_numpy(tree, dtype, device):
+    return {k: torch.tensor(np.asarray(v), dtype=dtype, device=device)
+            for k, v in tree.items()}
+
+
+def adam_state_from_numpy(state, dtype=torch.float32, device=None):
+    return {"count": int(state["count"]),
+            "mu": layers_from_numpy(state["mu"], dtype, device),
+            "nu": layers_from_numpy(state["nu"], dtype, device)}
+
+
+def adam_state_to_numpy(state):
+    return {"count": int(state["count"]), "mu": layers_to_numpy(state["mu"]),
+            "nu": layers_to_numpy(state["nu"])}
+
+
+def world_model_from_numpy(model, dyn_params, dyn_tr, dyn_opt_state=None,
+                           rew_params=None, rew_tr=None, rew_opt_state=None):
+    """Load a JAX world model's arrays into a port ``WorldModel`` (a member
+    of an ensemble writes into its slice of the stacks).  Without an Adam
+    state the moments start at zero."""
+    dt, dev = model.dtype, model.device
+    params = layers_from_numpy(dyn_params, dt, dev)
+    model.dyn_params = params
+    model.dyn_tr = _tree_from_numpy(dyn_tr, dt, dev)
+    model.dyn_opt_state = adam_init(params) if dyn_opt_state is None \
+        else adam_state_from_numpy(dyn_opt_state, dt, dev)
+    if rew_params is not None:
+        model.rew_params = layers_from_numpy(rew_params, dt, dev)
+        model.rew_tr = _tree_from_numpy(rew_tr, dt, dev)
+        model.rew_opt_state = adam_init(model.rew_params) \
+            if rew_opt_state is None \
+            else adam_state_from_numpy(rew_opt_state, dt, dev)
+    return model
+
+
+def world_model_to_numpy(model):
+    """-> the port ``WorldModel``'s arrays in the JAX layout (float64)."""
+    tr = lambda t: {k: _np(v).astype(np.float64) for k, v in t.items()}
+    out = dict(dyn_params=layers_to_numpy(model.dyn_params),
+               dyn_tr=tr(model.dyn_tr),
+               dyn_opt_state=adam_state_to_numpy(model.dyn_opt_state))
+    if model.learn_reward:
+        out.update(rew_params=layers_to_numpy(model.rew_params),
+                   rew_tr=tr(model.rew_tr),
+                   rew_opt_state=adam_state_to_numpy(model.rew_opt_state))
+    return out
