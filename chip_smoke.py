@@ -101,6 +101,30 @@ peak device memory and kernel launches:
             fit (injected permutations, 11 Adam steps), one MPCPolicy action
             (injected candidates), one DAPG update.
 
+The contact half of the general engine (M9a: every narrowphase pair,
+pyramidal friction, the contact_topk cap, frozen rows, fixed tendons),
+each phase asserting finite statistics and no launch of either planar
+kernel, with its launches per control step and the device's busy share:
+
+24. rollout_peg  PegEnv (implicit solver, 282 contact slots capped at 64
+            rows, rows frozen for the control step), 4096 x 50 (the full
+            horizon), 64-64 policy, random, float32: the moved hole's y
+            spans its reset range.
+25. train_peg_npg  NPG on mjrl_peg_insertion-v0 through GymEnv -> MLP ->
+            MLPBaseline -> NPG -> train_agent with tools/train_gym.py's
+            hyperparameters (64-64, init_log_std -0.5, step 0.05, gamma
+            0.995, GAE 0.97, MLPBaseline reg 1e-3, batch 64, 2 epochs),
+            4096 x 50, 2 iterations.
+26. train_ant_npg  the same on Ant-v3 (rows rebuilt at every RK4 stage),
+            4096 environments, 2 iterations, the horizon cut from 1000 to
+            the largest that keeps a rollout within 0.55 of 40 s by the
+            measured seconds of a 2-step rollout; the cut is printed.
+27. rollout_humanoid  HumanoidEnv (140 slots, the condim-1 class capped at
+            64, 2 fixed tendons), 4096 x 10 (cut from 1000).
+28. contact_card_vs_cpu  float64, B 8: 2 control steps of peg and Ant from
+            tests/golden's contact states on the card and on the CPU: obs,
+            state and reward within 1e-9, equal slot_ids.
+
 Each phase's launches are counted from just before it to just after.  The
 last line is {"ok": true, "device": {...}}.
 """
@@ -121,20 +145,24 @@ import torch
 
 from mjrl_tpu_torch import convert
 from mjrl_tpu_torch.algos import BC, NPG, TRPO
-from mjrl_tpu_torch.baselines import LinearBaseline, QuadraticBaseline
+from mjrl_tpu_torch.baselines import (LinearBaseline, MLPBaseline,
+                                     QuadraticBaseline)
 from mjrl_tpu_torch.device import make_generator
 from mjrl_tpu_torch.envs import GymEnv
-from mjrl_tpu_torch.envs.gym_suite import (HalfCheetahEnv, HopperEnv,
+from mjrl_tpu_torch.envs.gym_suite import (AntEnv, HalfCheetahEnv,
+                                           HopperEnv, HumanoidEnv,
                                            InvertedPendulumEnv, Walker2dEnv)
+from mjrl_tpu_torch.envs.peg_insertion import PegEnv
 from mjrl_tpu_torch.envs.point_mass import PointMassEnv
 from mjrl_tpu_torch.envs.reacher import Reacher7DOFEnv
 from mjrl_tpu_torch.envs.swimmer import SwimmerEnv
 from mjrl_tpu_torch.models.policies import MLP
 from mjrl_tpu_torch.ops import cuda_planar
-from mjrl_tpu_torch.physics import planar
+from mjrl_tpu_torch.physics import dynamics, planar, solver
+from mjrl_tpu_torch.physics.collision import contact_pair_condims
+from mjrl_tpu_torch.physics.kinematics import body_frames
 from mjrl_tpu_torch.physics.planar import step_n_arrays
 from mjrl_tpu_torch.samplers.rollout import rollout_batch, sample_paths
-from mjrl_tpu_torch.utils.profile_main_path import device_rows
 from mjrl_tpu_torch.utils.train_agent import train_agent
 
 # published peaks of one H100 SXM (NVIDIA data sheet): the roofline bound
@@ -1058,21 +1086,25 @@ NO_LAUNCHES = {SMOOTH: 0, CONTACT: 0}
 
 
 def profiled_window(fn, steps):
-    """fn() under torch.profiler -> (device launches per control step,
-    share of the window's wall time the device was busy, window ms).  The
-    profiler's own cost grows with the launches it records (thousands per
-    control step on these paths), so the windows are two steps long."""
+    """fn() under torch.profiler (device activity only) -> (device launches
+    per control step, share of the window's wall time the device was busy,
+    window ms).  The device's events are read from the raw Kineto results:
+    building the profiler's per-event tables costs far more than the
+    window on paths of tens of thousands of launches per step, so the
+    windows are one or two steps long."""
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.time()
         fn()
         torch.cuda.synchronize()
         window_ms = (time.time() - t0) * 1e3
-    rows = device_rows(prof)
-    return (sum(r[2] for r in rows) / steps,
-            sum(r[1] for r in rows) / window_ms, window_ms)
+    busy_ms, n = 0.0, 0
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            busy_ms += e.duration_ns() / 1e6
+            n += 1
+    return n / steps, busy_ms / window_ms, window_ms
 
 
 def check_finite(batch, phase):
@@ -1642,6 +1674,222 @@ def m10_card_vs_cpu():
           "num_models": M, "hidden_size": [256, 256], "max_abs_err": errs})
 
 
+# ---------------------------------------------------------------------------
+# M9a: the contact half of the general engine (no planar kernel)
+# ---------------------------------------------------------------------------
+
+# one NPG iteration of Ant-v3 at 4096 environments is held to this many
+# seconds by cutting its horizon: the rollout gets this share of it, from
+# a 2-step rollout's seconds per step (a training rollout's steps took up to
+# 1.34 x as long, and the baseline fit ~0.2 s per step of horizon, on an
+# H100 at 700 W)
+ANT_ITER_S = 40.0
+ANT_ROLLOUT_SHARE = 0.55
+M9A_NITER = 2
+M9A_CARD_TOL = 1e-9
+
+
+def check_model_m9a(env, topk, frozen):
+    m = env.model
+    if m.solver != 1 or m.contact_topk != topk \
+            or m.row_freeze_step != frozen or env._planar is not None:
+        raise AssertionError(
+            f"{type(env).__name__}: solver {m.solver}, contact_topk "
+            f"{m.contact_topk}, row_freeze_step {m.row_freeze_step}")
+
+
+def phase_rollout_peg():
+    env = PegEnv()
+    check_model_m9a(env, 64, True)
+    batch, rec = general_rollout("rollout_peg", env, (64, 64), env.horizon,
+                                 2)
+    # the scenery moved the hole: the target's y spans the reset range
+    ty = batch["observations"][:, 0, -2]
+    if not (0.1 <= float(ty.min()) and float(ty.max()) <= 0.5
+            and float(ty.max() - ty.min()) > 0.2):
+        raise AssertionError(f"peg targets y in [{float(ty.min())}, "
+                             f"{float(ty.max())}]")
+    rec.update(mean_return=batch["rewards"].sum(1).mean().item(),
+               contact_slots=len(contact_pair_condims(env.model)),
+               contact_topk=env.model.contact_topk)
+    emit(rec)
+    return rec["kernel_launches"]
+
+
+def phase_rollout_humanoid():
+    env = HumanoidEnv()
+    check_model_m9a(env, 64, False)
+    batch, rec = general_rollout("rollout_humanoid", env, (64, 64), 10, 2)
+    rec.update(horizon_cut_from=env.horizon,
+               mean_return=(batch["rewards"] * batch["mask"]).sum(1)
+               .mean().item(),
+               contact_slots=len(contact_pair_condims(env.model)))
+    emit(rec)
+    return rec["kernel_launches"]
+
+
+def ant_horizon():
+    """The largest Ant-v3 horizon whose rollout at NUM_ENVS keeps within
+    ANT_ROLLOUT_SHARE of ANT_ITER_S, from a measured 2-step rollout ->
+    (horizon, seconds per control step, device launches per step)."""
+    env = AntEnv()
+    policy = MLP(env.spec, hidden_sizes=(64, 64), init_log_std=-0.5,
+                 seed=0)
+    gen = make_generator(3, env.device)
+    roll = lambda T: rollout_batch(env, policy.config, policy.params,
+                                   policy.transforms, gen, NUM_ENVS,
+                                   horizon=T)
+    roll(1)                                         # warms up
+    _, counts, seconds = run_counted(lambda: roll(2))
+    if counts != NO_LAUNCHES:
+        raise AssertionError(f"Ant rollout launched {counts}")
+    per_step = seconds / 2
+    horizon = max(1, min(env.horizon,
+                         int(ANT_ITER_S * ANT_ROLLOUT_SHARE / per_step)))
+    launches, _, _ = profiled_window(lambda: roll(1), 1)
+    return horizon, per_step, launches
+
+
+def train_npg_general(env_id, horizon, phase, topk, frozen, extra):
+    """NPG on ``env_id`` through GymEnv -> MLP -> MLPBaseline -> NPG ->
+    train_agent, with tools/train_gym.py's hyperparameters (64-64,
+    init_log_std -0.5, step 0.05, gamma 0.995, GAE 0.97), M9A_NITER
+    iterations of NUM_ENVS x ``horizon``; no planar kernel launched."""
+    e = GymEnv(env_id, horizon=horizon)
+    e.env.horizon = horizon              # the rollout reads the env's own
+    check_model_m9a(e.env, topk, frozen)
+    policy = MLP(e.spec, hidden_sizes=(64, 64), init_log_std=-0.5, seed=0)
+    baseline = MLPBaseline(e.spec, reg_coef=1e-3, batch_size=64, epochs=2,
+                           learn_rate=1e-3)
+    agent = NPG(e, policy, baseline, normalized_step_size=0.05, seed=0,
+                save_logs=True)
+    assert agent.device.type == "cuda" and policy.device.type == "cuda"
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as tmp:
+        job = os.path.join(tmp, phase)
+        with contextlib.redirect_stdout(sys.stderr):
+            _, counts, seconds = run_counted(lambda: train_agent(
+                job, agent, seed=0, niter=M9A_NITER, num_traj=NUM_ENVS,
+                gamma=0.995, gae_lambda=0.97, save_freq=10))
+    if counts != NO_LAUNCHES:
+        raise AssertionError(f"{phase}: launched {counts}")
+    log = agent.logger.log
+    for k, vals in log.items():
+        if len(vals) != M9A_NITER or not np.all(np.isfinite(vals)):
+            raise AssertionError(f"{phase}: logged {k} not finite: {vals}")
+    if not np.all(np.isfinite(policy.get_param_values())):
+        raise AssertionError(f"{phase}: policy parameters not finite")
+    kl_cap = agent.kl_guard * agent.n_step_size / 2
+    if not all(kl <= kl_cap * (1 + 1e-6) for kl in log["kl_dist"]):
+        raise AssertionError(f"kl_dist {log['kl_dist']} above {kl_cap}")
+    fenv = e.env
+    gen = make_generator(9, fenv.device)
+    launches, busy, window_ms = profiled_window(
+        lambda: rollout_batch(fenv, policy.config, policy.params,
+                              policy.transforms, gen, NUM_ENVS, horizon=1),
+        1)
+    iteration_s = [a + b + c for a, b, c in zip(
+        log["time_sampling"], log["time_npg"], log["time_VF"])]
+    emit({"phase": phase, "env": env_id, "iterations": M9A_NITER,
+          "num_traj": NUM_ENVS, "horizon": horizon, **extra,
+          "seconds": seconds, "iteration_seconds": iteration_s,
+          "kernel_launches": counts, "num_samples": log["num_samples"],
+          "time_sampling": log["time_sampling"],
+          "time_npg": log["time_npg"], "time_VF": log["time_VF"],
+          "ms_per_control_step": [t / horizon * 1e3
+                                  for t in log["time_sampling"]],
+          "kl_dist": log["kl_dist"], "stoc_pol_mean": log["stoc_pol_mean"],
+          "device_launches_per_step": launches, "window_ms": window_ms,
+          "device_busy_share": busy,
+          "peak_device_memory_bytes": torch.cuda.max_memory_allocated()})
+    return counts
+
+
+def phase_train_peg_npg():
+    return train_npg_general("mjrl_peg_insertion-v0", PegEnv.horizon,
+                             "train_peg_npg", 64, True, {})
+
+
+def phase_train_ant_npg():
+    horizon, per_step, launches = ant_horizon()
+    return train_npg_general(
+        "Ant-v3", horizon, "train_ant_npg", 0, False,
+        {"horizon_cut_from": AntEnv.horizon,
+         "horizon_cut_basis": {"iteration_budget_s": ANT_ITER_S,
+                               "rollout_share": ANT_ROLLOUT_SHARE,
+                               "measured_s_per_control_step": per_step,
+                               "device_launches_per_step": launches}})
+
+
+def _slot_ids(env, state):
+    """slot_ids of the constraint rows at ``state`` (B, C)."""
+    q, v = state.physics.qpos, state.physics.qvel
+    data = body_frames(env.model, q, env._body_pos(state.scenery))
+    cdof = dynamics.compute_cdof(env.model, data)
+    return solver.constraint_rows(env.model, data, cdof, q, v)[7]
+
+
+def phase_contact_card_vs_cpu():
+    """Float64, B 8: 2 control steps of peg (frozen rows, top-k cap) and
+    Ant (rows at every RK4 stage) from the contact golden states, on the
+    card and on the CPU: obs, state and reward within M9A_CARD_TOL, equal
+    slot_ids before every step."""
+    B, T = 8, 2
+    rec = {"phase": "contact_card_vs_cpu", "B": B, "control_steps": T,
+           "dtype": "float64", "rtol_atol": M9A_CARD_TOL}
+    t_start = time.time()
+    for name, cls, golden in (("peg", PegEnv, "contact_peg_insertion"),
+                              ("ant", AntEnv, "contact_ant")):
+        g = np.load(os.path.join(HERE, "tests", "golden", golden + ".npz"))
+        rng = np.random.RandomState(5)
+        q, v = g["qpos"][:B], g["qvel"][:B]
+        scenery = ({"goal_y": rng.uniform(0.1, 0.5, B)} if cls is PegEnv
+                   else {})
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            env = cls(dtype=torch.float64, device=dev)
+            acts = np.random.RandomState(6).uniform(-1, 1,
+                                                    (T, B, env.action_dim))
+
+            def run():
+                s = env.state_from_qpos_qvel(q, v, scenery)
+                ids, states = [], []
+                for t in range(T):
+                    ids.append(_slot_ids(env, s))
+                    s = env.step(s, torch.tensor(acts[t], device=dev))
+                    states.append(s)
+                return ids, states
+            runs[dev], counts, _ = run_counted(run)
+            if counts != NO_LAUNCHES:
+                raise AssertionError(f"{name} card vs CPU launched {counts}")
+            if dev == "cuda":
+                launches, busy, _ = profiled_window(
+                    lambda: env.step(env.state_from_qpos_qvel(q, v, scenery),
+                                     torch.tensor(acts[0], device=dev)), 1)
+        errs = {}
+        for t in range(T):
+            (gi, gs), (ci, cs) = ((runs[d][0][t], runs[d][1][t])
+                                  for d in ("cuda", "cpu"))
+            if not torch.equal(gi.cpu(), ci):
+                raise AssertionError(f"{name}: slot_ids differ at step {t}")
+            for k, a, b in (("obs", gs.obs, cs.obs),
+                            ("qpos", gs.physics.qpos, cs.physics.qpos),
+                            ("qvel", gs.physics.qvel, cs.physics.qvel),
+                            ("reward", gs.reward, cs.reward)):
+                torch.testing.assert_close(
+                    a.cpu(), b, rtol=M9A_CARD_TOL, atol=M9A_CARD_TOL,
+                    msg=lambda m: f"{name} {k} step {t}: {m}")
+                errs[k] = max(errs.get(k, 0.0),
+                              (a.cpu() - b).abs().max().item())
+        n_con = int((runs["cpu"][0][0] >= 0).sum())
+        rec[name] = {"max_abs_err": errs, "contact_rows": n_con,
+                     "device_launches_per_step": launches,
+                     "device_busy_share": busy}
+    rec["seconds"] = time.time() - t_start
+    emit(rec)
+    return NO_LAUNCHES
+
+
 def main():
     t_start = time.time()
     phase = "device"
@@ -1721,6 +1969,21 @@ def main():
         m10_card_vs_cpu()
         phase_seconds[phase] = time.time() - t0
         emit({"phase": "m10", "phase_seconds": phase_seconds,
+              "seconds": sum(phase_seconds.values())})
+        # M9a: the contact half of the general engine
+        phase_seconds = {}
+        for phase, fn in (
+                ("rollout_peg", phase_rollout_peg),
+                ("train_peg_npg", phase_train_peg_npg),
+                ("train_ant_npg", phase_train_ant_npg),
+                ("rollout_humanoid", phase_rollout_humanoid),
+                ("contact_card_vs_cpu", phase_contact_card_vs_cpu)):
+            t0 = time.time()
+            counts = fn()
+            phase_seconds[phase] = time.time() - t0
+            kernel["launches_by_path"][phase] = counts[SMOOTH]
+            contact["launches_by_path"][phase] = counts[CONTACT]
+        emit({"phase": "m9a", "phase_seconds": phase_seconds,
               "seconds": sum(phase_seconds.values())})
     except Exception:
         traceback.print_exc()

@@ -8,6 +8,7 @@ The runner resolves them by env id from a registry.
 
 import torch
 
+from mjrl_tpu_torch.envs.peg_insertion import PegEnv
 from mjrl_tpu_torch.envs.point_mass import PointMassEnv
 from mjrl_tpu_torch.envs.reacher import Reacher7DOFEnv
 
@@ -37,8 +38,8 @@ def reacher_reward(paths):
 
 
 def peg_insertion_reward(paths):
-    raise NotImplementedError(
-        "the peg-insertion env is not ported (ROADMAP.md M9)")
+    paths["rewards"] = PegEnv.reward_fn(paths["observations"])
+    return paths
 
 
 register("mjrl_point_mass-v0", point_mass_reward)

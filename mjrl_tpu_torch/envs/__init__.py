@@ -2,14 +2,16 @@
 
 ``make(env_id)`` returns a functional env; ``GymEnv(env_id)`` wraps it with
 the stateful host-side API.  Ported so far: the point mass, the swimmer,
-the 7-DoF reacher, the planar gym locomotion suite (Hopper, Walker2d,
-HalfCheetah) and InvertedPendulum; the remaining ids are listed in
-ROADMAP.md queue 1.
+the 7-DoF reacher, peg insertion, the planar gym locomotion suite (Hopper,
+Walker2d, HalfCheetah), InvertedPendulum, Ant and Humanoid.  The Adroit
+ids are registered as in the JAX package and raise, naming ROADMAP.md M9b.
 """
 
 from mjrl_tpu_torch.envs.base import EnvSpec, EnvState, MujocoLikeEnv
-from mjrl_tpu_torch.envs.gym_suite import (HalfCheetahEnv, HopperEnv,
+from mjrl_tpu_torch.envs.gym_suite import (AntEnv, HalfCheetahEnv,
+                                           HopperEnv, HumanoidEnv,
                                            InvertedPendulumEnv, Walker2dEnv)
+from mjrl_tpu_torch.envs.peg_insertion import PegEnv
 from mjrl_tpu_torch.envs.point_mass import PointMassEnv
 from mjrl_tpu_torch.envs.reacher import Reacher7DOFEnv
 from mjrl_tpu_torch.envs.swimmer import SwimmerEnv
@@ -37,6 +39,7 @@ def make(env_id, **overrides):
 register("mjrl_point_mass-v0", PointMassEnv)
 register("mjrl_swimmer-v0", SwimmerEnv)
 register("mjrl_reacher_7dof-v0", Reacher7DOFEnv)
+register("mjrl_peg_insertion-v0", PegEnv)
 for _id in ("Hopper-v3", "Hopper-v4"):
     register(_id, HopperEnv)
 for _id in ("HalfCheetah-v3", "HalfCheetah-v4"):
@@ -45,5 +48,20 @@ for _id in ("Walker2d-v3", "Walker2d-v4"):
     register(_id, Walker2dEnv)
 for _id in ("InvertedPendulum-v2", "InvertedPendulum-v4"):
     register(_id, InvertedPendulumEnv)
+for _id in ("Ant-v3", "Ant-v4"):
+    register(_id, AntEnv)
+for _id in ("Humanoid-v3", "Humanoid-v4"):
+    register(_id, HumanoidEnv)
+
+
+def _make_relocate(**kwargs):
+    raise NotImplementedError(
+        "the Adroit hand (relocate) needs the rest of the general engine: "
+        "explicit contact pairs, mesh geoms, affine servos, noslip and the "
+        "primal Newton solver (ROADMAP.md M9b)")
+
+
+register("relocate-v0", _make_relocate)
+register("AdroitHandRelocate-v1", _make_relocate)
 
 from mjrl_tpu_torch.envs.gym_env import GymEnv  # noqa: E402  (needs _REGISTRY)

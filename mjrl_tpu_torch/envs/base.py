@@ -78,7 +78,8 @@ class MujocoLikeEnv:
     ``_reward(obs, action, prev_state, new_physics)``, ``_info(obs,
     reward)``, ``_reset_scenery(n, generator)``,
     ``_reset_qpos_qvel(n, generator)`` — all batch-first — and, when the
-    scenery moves sites, ``_site_pos(scenery)``.
+    scenery moves sites or bodies, ``_site_pos(scenery)`` or
+    ``_body_pos(scenery)``.
     """
 
     model: Model
@@ -93,7 +94,8 @@ class MujocoLikeEnv:
         self.device = resolve_device(device)
         # the planar fast path, when the model qualifies and the env never
         # moves a part of the model per episode (as the JAX package picks)
-        static_model = type(self)._site_pos is MujocoLikeEnv._site_pos
+        static_model = (type(self)._site_pos is MujocoLikeEnv._site_pos
+                        and type(self)._body_pos is MujocoLikeEnv._body_pos)
         self._planar = extract_planar(
             self.model, np.float32 if dtype == torch.float32
             else np.float64) if static_model else None
@@ -106,11 +108,18 @@ class MujocoLikeEnv:
         JAX package's ``_patched_model``), or None for the model's."""
         return None
 
+    def _body_pos(self, scenery):
+        """(B, nbody, 3) body offsets that the scenery moves (the JAX
+        package's ``_patched_model``), or None for the model's.  The
+        dynamics, the narrowphase and the observed sites all read them."""
+        return None
+
     def _kinematics(self, physics, scenery):
         """Forward kinematics for observations: body frames and sites."""
         if not self.needs_fk_obs:
             return None
-        data = body_frames(self.model, physics.qpos)
+        data = body_frames(self.model, physics.qpos,
+                           self._body_pos(scenery))
         data.site_xpos = site_positions(self.model, data,
                                         self._site_pos(scenery))
         return data
@@ -158,7 +167,8 @@ class MujocoLikeEnv:
             physics = State(qpos=qpos, qvel=qvel)
         else:
             physics = step_n(self.model, state.physics, action,
-                             self.frame_skip)
+                             self.frame_skip,
+                             body_pos=self._body_pos(state.scenery))
         physics = _rescue_divergence(state.physics, physics)
         obs = self._obs(self._kinematics(physics, state.scenery),
                         state.scenery, physics)

@@ -1,9 +1,11 @@
-"""Gym/MuJoCo-parity environments: Hopper, Walker2d, HalfCheetah and
-InvertedPendulum (counterpart of ``mjrl_tpu/envs/gym_suite.py``).
+"""Gym/MuJoCo-parity environments: Hopper, Walker2d, HalfCheetah,
+InvertedPendulum, Ant and Humanoid (counterpart of
+``mjrl_tpu/envs/gym_suite.py``).
 
 The MJCF models are parsed with the port's own parser
-(``physics/mjcf.py``) from the port's OWN COPIES of the three files,
-``envs/mjcf/{hopper,walker2d,half_cheetah,inverted_pendulum}.xml``.
+(``physics/mjcf.py``) from the port's OWN COPIES of the files,
+``envs/mjcf/{hopper,walker2d,half_cheetah,inverted_pendulum,ant,
+humanoid}.xml``.
 They are byte-for-byte
 the files of the ``gymnasium`` package (1.2.2, MIT licence, notice beside
 them); the JAX package reads them from an installed ``gymnasium`` instead.
@@ -13,8 +15,10 @@ MuJoCo: the machine with the GPU is not promised to have either.
 Hopper, Walker2d and HalfCheetah take the planar fast path: every control
 step is one call of ``ops.cuda_planar.cuda_step_n_batched`` — on a CUDA
 device one launch of the contact/RK4 kernel.  InvertedPendulum runs on the
-penalty solver, which the fast path does not take: it goes through the
-general engine (``physics/step.py``), eager PyTorch.
+penalty solver, which the fast path does not take, and Ant and Humanoid
+are 3D floating bases with contacts: they go through the general engine
+(``physics/step.py``), eager PyTorch, Ant and Humanoid at the implicit
+solver with their constraint rows rebuilt at every RK4 stage.
 
 Semantics follow the gym v3 task definitions:
 - Hopper-v3: obs [qpos[1:], clip(qvel, +-10)] (11,); reward = healthy(1) +
@@ -25,8 +29,14 @@ Semantics follow the gym v3 task definitions:
   termination; reset noise U(-0.1, 0.1) on qpos, 0.1 N(0,1) on qvel.
 - InvertedPendulum-v2: obs (4,); reward 1; terminate when |angle| > 0.2;
   reset noise U(-0.01, 0.01).
-
-Ant and Humanoid need contacts of the general engine (ROADMAP.md M9).
+- Ant-v3 (free joint): obs [qpos[2:], qvel] (27,: the v4 observation
+  without contact forces); reward = healthy(1) + x-velocity - 0.5 |a|^2;
+  terminate when z leaves (0.2, 1.0); reset noise U(-0.1, 0.1) on qpos,
+  0.1 N(0, 1) on qvel, the root quaternion renormalized.
+- Humanoid-v3: obs [qpos[2:], qvel] (45,); reward = healthy(5) + 1.25
+  x-velocity (at the root joint) - 0.1 |a|^2; terminate when z leaves
+  (1.0, 2.0); reset noise U(-0.01, 0.01), the root quaternion
+  renormalized.
 """
 
 import math
@@ -170,3 +180,55 @@ class InvertedPendulumEnv(_GymMujocoEnv):
     def _done(self, obs, physics):
         return (physics.qpos[..., 1].abs() > 0.2) \
             | ~torch.isfinite(obs).all(-1)
+
+
+class _FloatingBaseEnv(_GymMujocoEnv):
+    """A 3D model on a free joint: obs [qpos[2:], qvel], alive while the
+    root height stays in ``healthy_z``."""
+    healthy_reward = 1.0
+    forward_weight = 1.0
+
+    def _reset_qpos_qvel(self, n, generator):
+        qpos, qvel = super()._reset_qpos_qvel(n, generator)
+        # renormalize the root quaternion after the additive reset noise
+        quat = qpos[:, 3:7]
+        quat = quat / torch.sqrt(torch.sum(quat * quat, dim=-1,
+                                           keepdim=True) + 1e-12)
+        return torch.cat([qpos[:, :3], quat, qpos[:, 7:]], dim=-1), qvel
+
+    def _obs(self, data, scenery, physics):
+        return torch.cat([physics.qpos[..., 2:], physics.qvel], dim=-1)
+
+    def _reward(self, obs, action, prev_state, new_physics):
+        x_vel = (new_physics.qpos[..., 0]
+                 - prev_state.physics.qpos[..., 0]) / self.dt
+        ctrl = self.ctrl_cost * torch.sum(torch.square(action), dim=-1)
+        return self.healthy_reward + self.forward_weight * x_vel - ctrl
+
+    def _done(self, obs, physics):
+        z = physics.qpos[..., 2]
+        return ~((z > self.healthy_z[0]) & (z < self.healthy_z[1])
+                 & torch.isfinite(obs).all(-1))
+
+
+class AntEnv(_FloatingBaseEnv):
+    xml_name = "ant.xml"
+    observation_dim = 27
+    frame_skip = 5
+    horizon = 1000
+    reset_noise = 0.1
+    vel_noise = 0.1
+    healthy_z = (0.2, 1.0)
+    ctrl_cost = 0.5
+
+
+class HumanoidEnv(_FloatingBaseEnv):
+    xml_name = "humanoid.xml"
+    observation_dim = 45
+    frame_skip = 5
+    horizon = 1000
+    reset_noise = 0.01
+    healthy_z = (1.0, 2.0)
+    healthy_reward = 5.0
+    ctrl_cost = 0.1
+    forward_weight = 1.25

@@ -12,7 +12,9 @@ actuation, in world-origin spatial coordinates (counterpart of
 - terms whose coefficients are all exact zeros in the model (no joint
   springs, no damping, no fluid) are left out: they add exact zeros.
 
-Tendons and equality constraints wait for ROADMAP.md M9.
+Fixed tendons have a constant Jacobian ``ten_J``: their passive
+spring/damper forces and their penalty length limits map back through it.
+Equality constraints wait for ROADMAP.md M9b.
 """
 
 import numpy as np
@@ -229,6 +231,51 @@ def spring_force(model: Model, qpos):
 def damping_force(model: Model, qvel):
     t = _tables(model, qvel)
     return -t.dof_damping * qvel
+
+
+def tendon_lengths(model: Model, qpos):
+    """Fixed-tendon lengths L = ten_J q over the scalar dofs (B, ntendon);
+    ball/free columns of ten_J are structurally zero."""
+    t = _tables(model, qpos)
+    return _dof_q(model, qpos) @ t.ten_J.T
+
+
+def tendon_passive_force(model: Model, qpos, qvel):
+    """qfrc_passive of fixed tendons: a deadband spring (zero inside
+    [springlength0, springlength1], linear outside) plus linear damping on
+    the tendon velocity, mapped back through the constant Jacobian."""
+    t = _tables(model, qpos)
+    L = tendon_lengths(model, qpos)
+    V = qvel @ t.ten_J.T
+    lo, hi = t.ten_springlength[:, 0], t.ten_springlength[:, 1]
+    displacement = torch.where(L > hi, hi - L,
+                               torch.where(L < lo, lo - L,
+                                           torch.zeros_like(L)))
+    frc = t.ten_stiffness * displacement - t.ten_damping * V
+    return frc @ t.ten_J
+
+
+def tendon_limit_qacc(model: Model, qpos, qvel):
+    """Penalty-path reference acceleration for fixed-tendon length limits
+    (the tendon analog of ``limit_qacc``; the implicit solver holds them
+    as constraint rows)."""
+    t = _tables(model, qpos)
+    L = tendon_lengths(model, qpos)
+    V = qvel @ t.ten_J.T
+    lo, hi = t.ten_range[:, 0], t.ten_range[:, 1]
+    below = torch.clamp(lo - L, min=0.0)
+    above = torch.clamp(L - hi, min=0.0)
+    dist = below - above          # signed: positive pushes the length up
+    active = t.ten_limited * ((below > 0) | (above > 0)).to(L.dtype)
+    floor = (4.0 if model.integrator == EULER else 2.0) * t.timestep
+    timeconst = torch.maximum(t.ten_solref[:, 0], floor)
+    dampratio = t.ten_solref[:, 1]
+    k = 1.0 / torch.clamp(timeconst * timeconst * dampratio * dampratio,
+                          min=1e-12)
+    b = 2.0 / torch.clamp(timeconst, min=1e-12)
+    aref = (k * torch.clamp(dist, -LIMIT_WIDTH, LIMIT_WIDTH) - b * V) \
+        * active
+    return aref @ t.ten_J
 
 
 def limit_qacc(model: Model, qpos, qvel):

@@ -98,12 +98,16 @@ def _axis_angle_mat(axis, angle):
     return torch.stack(rows, dim=-1).reshape(axis.shape[:-1] + (3, 3))
 
 
-def body_frames(model: Model, qpos) -> Data:
+def body_frames(model: Model, qpos, body_pos=None) -> Data:
     """Body and joint frames of a batch of configurations ``qpos``
     (B, nq): the part of forward kinematics that the dynamics read (sites
-    and geoms left out)."""
+    and geoms left out).  ``body_pos`` (B, nbody, 3) gives every row its
+    own body offsets (scenery such as a fixture moved per episode), else
+    the model's."""
     t = model_tables(model, qpos.dtype, qpos.device)
     B = qpos.shape[0]
+    if body_pos is None:
+        body_pos = t.body_pos.expand(B, -1, -1)
     xpos = [None] * model.nbody      # None: the world (origin, identity)
     xmat = [None] * model.nbody
     xanchor = [None] * model.njnt
@@ -113,10 +117,10 @@ def body_frames(model: Model, qpos) -> Data:
         p = model.body_parent[b]
         if xmat[p] is None:
             mat = t.body_mat[b].expand(B, 3, 3)
-            pos = t.body_pos[b].expand(B, 3)
+            pos = body_pos[:, b]
         else:
             mat = pm.mat_mul(xmat[p], t.body_mat[b])
-            pos = xpos[p] + pm.mat_vec(xmat[p], t.body_pos[b])
+            pos = xpos[p] + pm.mat_vec(xmat[p], body_pos[:, b])
         for j in model.body_jnts[b]:
             adr = model.jnt_qposadr[j]
             jt = model.jnt_type[j]
@@ -201,11 +205,12 @@ def geom_frames(model: Model, data: Data, geoms=None):
     return data.xpos[:, gb] + pm.mat_vec(bm, gp), pm.mat_mul(bm, gm)
 
 
-def fwd_kinematics(model: Model, qpos, site_pos=None) -> Data:
+def fwd_kinematics(model: Model, qpos, site_pos=None, body_pos=None) -> Data:
     """Every world pose of a batch of configurations ``qpos`` (B, nq):
     bodies, joints, sites (``site_pos`` (B, nsite, 3): per-row local site
-    positions, else the model's) and geoms."""
-    data = body_frames(model, qpos)
+    positions, else the model's) and geoms; ``body_pos`` as in
+    ``body_frames``."""
+    data = body_frames(model, qpos, body_pos)
     data.site_xpos = site_positions(model, data, site_pos)
     if model.ngeom:
         data.geom_xpos, data.geom_xmat = geom_frames(model, data)

@@ -21,8 +21,9 @@ locomotion models:
 
 The parser hands every element to the port's ``ModelBuilder``.  What it
 cannot build yet — servo actuators, vector gears and motors on free/ball
-joints, tendons, explicit contact pairs, equalities — raises
-``NotImplementedError`` there, naming the item (ROADMAP.md M9).
+joints, tendon transmissions, explicit contact pairs and excludes,
+equalities, mesh geoms — raises ``NotImplementedError``, naming the item
+(ROADMAP.md M9b).
 """
 
 import math
@@ -216,7 +217,7 @@ def load_mjcf(path=None, xml_string=None):
                 raise NotImplementedError(
                     "collidable mesh geoms are not supported (mesh "
                     "narrowphase); visual-only meshes (contype=0 "
-                    "conaffinity=0) are skipped")
+                    "conaffinity=0) are skipped (ROADMAP.md M9b)")
             mesh_bodies.add(body_id)
             return
         kwargs = dict(
@@ -336,7 +337,8 @@ def load_mjcf(path=None, xml_string=None):
             raise NotImplementedError(
                 "a body with mesh geoms needs an explicit <inertial> — "
                 "mesh mass properties are not computed, so dropping the "
-                "visual mesh would otherwise change the body's mass")
+                "visual mesh would otherwise change the body's mass "
+                "(ROADMAP.md M9b)")
 
     for tendons in root.findall("tendon"):
         for t in tendons:

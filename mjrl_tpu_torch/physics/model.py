@@ -10,11 +10,14 @@ Ported: slide, hinge, ball (3 dofs / 4 qpos: a local wxyz quaternion,
 angular velocity in the post-joint body frame) and free joints (6 dofs /
 7 qpos: world position + wxyz quaternion, on a direct child of the world),
 ball rotation limits, quaternion springs, plain motors on scalar joints,
-geoms (inertia and the dynamic contact pairs with their condim, friction,
-solref/solimp), Euler and RK4, both friction cones.  Servo actuators,
-vector gears (motors on ball/free joints), tendons, equalities, explicit
-contact pairs and the primal Newton solver belong to ROADMAP.md M9 and
-raise ``NotImplementedError``.
+fixed tendons (passive spring/damper and length limits), geoms (inertia
+and the dynamic contact pairs with their condim, friction, solref/solimp),
+the implicit solver's ``contact_topk`` active-set cap and its
+``row_freeze_step`` option, Euler and RK4, both friction cones.  Servo
+actuators, vector gears (motors on ball/free joints), tendon
+transmissions, equalities, explicit contact pairs and excludes and the
+primal Newton solver belong to ROADMAP.md M9b and raise
+``NotImplementedError``.
 """
 
 from dataclasses import dataclass, field, replace
@@ -86,6 +89,14 @@ class Model:
     actuator_simple: bool = True
     ntendon: int = 0
     neq: int = 0
+    # implicit-solver active-set cap: a condim class with more emitted
+    # contact slots than this gives rows to its contact_topk deepest only
+    # (0 = no cap)
+    contact_topk: int = 0
+    # RK4 under the implicit solver: freeze the substep-0 constraint rows
+    # across the stages and the whole control step (quasi-static contact
+    # models); False rebuilds them at every stage, as MuJoCo does
+    row_freeze_step: bool = False
     dof_qpos_idx: Tuple[int, ...] = ()
     # ball/free joints with nonzero stiffness (quaternion springs)
     jnt_spring_quat: Tuple[int, ...] = ()
@@ -130,6 +141,16 @@ class Model:
     geom_solimp: Any = None       # (ngeom, 5)
     site_pos: Any = None          # (nsite, 3)
     site_quat: Any = None         # (nsite, 4)
+    # fixed tendons: length = ten_J @ (scalar-dof qpos), a constant Jacobian
+    ten_J: Any = None             # (ntendon, nv)
+    ten_range: Any = None         # (ntendon, 2)
+    ten_limited: Any = None       # (ntendon,)
+    ten_solref: Any = None        # (ntendon, 2) limit solref
+    ten_solimp: Any = None        # (ntendon, 5) limit solimp
+    ten_stiffness: Any = None     # (ntendon,)
+    ten_damping: Any = None       # (ntendon,)
+    ten_springlength: Any = None  # (ntendon, 2) deadband [lo, hi]
+    ten_invweight0: Any = None    # (ntendon,) diag(J M0^-1 J^T)
     timestep: Any = None          # scalar
     gravity: Any = None           # (3,)
     viscosity: Any = None         # scalar
@@ -211,9 +232,10 @@ def _geom_mass_inertia(gtype, size, density, mass):
 
 def _invweights(model):
     """MuJoCo mj_setConst inverse-weight tables at qpos0:
-    ``dof_invweight0 = diag(M0^-1)`` and ``body_invweight0[b] =
+    ``dof_invweight0 = diag(M0^-1)``, ``body_invweight0[b] =
     (trace(Jc M0^-1 Jc^T)/3, trace(Jr M0^-1 Jr^T)/3)`` with Jc/Jr the
-    CoM translational/rotational Jacobians.
+    CoM translational/rotational Jacobians, and ``ten_invweight0 =
+    diag(ten_J M0^-1 ten_J^T)``.
 
     A small numpy composite-rigid-body evaluation in float64: at qpos0
     every joint sits at its reference (hinge/slide at ``ref``, ball at the
@@ -289,7 +311,8 @@ def _invweights(model):
     for b in range(1, nb):
         body_iw[b, 0] = np.trace(jts[b].T @ minv @ jts[b]) / 3.0
         body_iw[b, 1] = np.trace(jrs[b].T @ minv @ jrs[b]) / 3.0
-    return dof_iw, body_iw
+    tj = np.asarray(model.ten_J, np.float64)
+    return dof_iw, body_iw, np.einsum("ti,ij,tj->t", tj, minv, tj)
 
 
 def _actuators_simple(actuators, joints):
@@ -314,7 +337,7 @@ def _general_engine_only(item):
     def raiser(self, *args, **kwargs):
         raise NotImplementedError(
             f"{item} need the rest of the general engine and solver "
-            "(ROADMAP.md M9)")
+            "(ROADMAP.md M9b)")
     return raiser
 
 
@@ -348,6 +371,7 @@ class ModelBuilder:
         self.geoms = []
         self.sites = []
         self.actuators = []
+        self.tendons = []
         self.names = {"body": {"world": 0}, "site": {}, "geom": {},
                       "joint": {}, "tendon": {}}
 
@@ -447,33 +471,65 @@ class ModelBuilder:
         """Plain motor on a slide/hinge joint (``gear`` a scalar or a
         vector whose first element counts).  Servo gains/biases, vector
         gears and motors on ball/free joints, and tendon transmissions
-        belong to ROADMAP.md M9 and raise."""
+        belong to ROADMAP.md M9b and raise."""
         if tendon is not None or joint is None:
             raise NotImplementedError(
                 "tendon transmissions need the rest of the general engine "
-                "(ROADMAP.md M9)")
+                "(ROADMAP.md M9b)")
         if float(gain) != 1.0 or np.any(np.asarray(bias, np.float64) != 0.0):
             raise NotImplementedError(
                 "position/velocity/general actuators (affine gain/bias) "
-                "need the rest of the general engine (ROADMAP.md M9)")
+                "need the rest of the general engine (ROADMAP.md M9b)")
         gear = np.atleast_1d(np.asarray(gear, np.float64))
         if np.any(gear[1:] != 0.0):
             raise NotImplementedError(
                 "vector gears need the rest of the general engine "
-                "(ROADMAP.md M9)")
+                "(ROADMAP.md M9b)")
         if self.joints[joint]["type"] in (FREE, BALL):
             raise NotImplementedError(
                 "motors on free/ball joints (vector-gear transmissions) "
-                "need the rest of the general engine (ROADMAP.md M9)")
+                "need the rest of the general engine (ROADMAP.md M9b)")
         self.actuators.append(dict(
             joint=joint, gear=float(gear[0]),
             ctrlrange=np.asarray(ctrlrange, np.float64),
             ctrllimited=float(bool(ctrllimited))))
         return len(self.actuators) - 1
 
+    def add_tendon(self, joints, ten_range=None, limited=None,
+                   stiffness=0.0, damping=0.0, springlength=None,
+                   solref=(0.02, 1.0), solimp=(0.9, 0.95, 0.001, 0.5, 2.0),
+                   name=None):
+        """Fixed tendon (MuJoCo <tendon><fixed>): length = sum coef *
+        qpos over the listed scalar joints.  ``joints`` is a list of
+        (joint_id, coef).  ``springlength`` is the deadband pair [lo, hi]
+        (a scalar = both); None or (-1, -1) = (0, 0), the MuJoCo
+        compiler's sentinel resolution."""
+        for jid, _ in joints:
+            if self.joints[jid]["type"] not in (SLIDE, HINGE):
+                raise ValueError(
+                    "fixed tendons couple scalar (slide/hinge) joints only")
+        if limited is None:
+            limited = ten_range is not None
+        if springlength is not None:
+            springlength = np.atleast_1d(
+                np.asarray(springlength, np.float64))
+            if len(springlength) == 1:
+                springlength = np.repeat(springlength, 2)
+        self.tendons.append(dict(
+            joints=[(int(j), float(c)) for j, c in joints],
+            range=np.asarray(ten_range if ten_range is not None
+                             else (0.0, 0.0), np.float64),
+            limited=float(bool(limited)), stiffness=float(stiffness),
+            damping=float(damping), springlength=springlength,
+            solref=np.asarray(solref, np.float64),
+            solimp=np.asarray(solimp, np.float64)))
+        tid = len(self.tendons) - 1
+        if name:
+            self.names["tendon"][name] = tid
+        return tid
+
     add_contact_pair = _general_engine_only("explicit contact pairs")
     add_contact_exclude = _general_engine_only("contact excludes")
-    add_tendon = _general_engine_only("tendons")
     add_equality_joint = add_equality_connect = add_equality_weld = \
         _general_engine_only("equality constraints")
 
@@ -580,19 +636,24 @@ class ModelBuilder:
                 for b in self.bodies:
                     b.geoms = [remap[g] for g in b.geoms]
 
-    def finalize(self, solver="penalty", dtype=np.float64, newton_iters=0):
+    def finalize(self, solver="penalty", dtype=np.float64, newton_iters=0,
+                 contact_topk=None, row_freeze_step=False):
         """Compile the declarations into a numpy ``Model``.
 
         ``dtype``: every numeric field is rounded to this precision (and
         then held as float64), as the JAX package stores a float32 model
         when an env is built in float32 — its ``timestep`` 0.002 then reads
         0.0020000000949949026, and the constants baked into the kernels
-        follow.  ``newton_iters > 0`` (the JAX package's primal Newton
-        solver) is not ported and raises."""
+        follow.  ``contact_topk``: the implicit solver's active-set cap
+        (see Model); None = 64 when the model emits more than 64 contact
+        slots, else no cap.  ``row_freeze_step``: freeze the RK4
+        constraint rows for the whole control step (see Model).
+        ``newton_iters > 0`` (the JAX package's primal Newton solver) is
+        not ported and raises."""
         if newton_iters:
             raise NotImplementedError(
                 "the primal Newton constraint solver (newton_iters > 0) "
-                "is not ported (ROADMAP.md M9)")
+                "is not ported (ROADMAP.md M9b)")
         self._sort_by_body()
         nbody = len(self.bodies)
         njnt = len(self.joints)
@@ -667,6 +728,21 @@ class ModelBuilder:
             if x["type"] != FREE:
                 dof_frictionloss[da:da + ndof] = x["frictionloss"]
 
+        # fixed-tendon tables: a constant Jacobian over scalar dofs; the
+        # exact (-1, -1) springlength sentinel resolves to (0, 0), any other
+        # value is literal
+        ntendon = len(self.tendons)
+        ten_J = np.zeros((ntendon, nv))
+        ten_spring = np.zeros((ntendon, 2))
+        for ti, x in enumerate(self.tendons):
+            for jid, coef in x["joints"]:
+                ten_J[ti, jnt_dofadr[jid]] += coef
+            sl = x["springlength"]
+            if sl is None or (sl[0] == -1 and sl[1] == -1):
+                sl = np.zeros(2)
+            ten_spring[ti] = sl
+        tn = self.tendons
+
         pairs_, pair_condim_ = self._contact_pairs()
 
         model = Model(
@@ -729,14 +805,29 @@ class ModelBuilder:
             geom_solimp=arr([g["solimp"] for g in self.geoms], ngeom, 5),
             site_pos=arr([s["pos"] for s in self.sites], nsite, 3),
             site_quat=arr([s["quat"] for s in self.sites], nsite, 4),
+            ntendon=ntendon,
+            ten_J=arr(ten_J, ntendon, nv),
+            ten_range=arr([x["range"] for x in tn], ntendon, 2),
+            ten_limited=arr([x["limited"] for x in tn], ntendon),
+            ten_solref=arr([x["solref"] for x in tn], ntendon, 2),
+            ten_solimp=arr([x["solimp"] for x in tn], ntendon, 5),
+            ten_stiffness=arr([x["stiffness"] for x in tn], ntendon),
+            ten_damping=arr([x["damping"] for x in tn], ntendon),
+            ten_springlength=arr(ten_spring, ntendon, 2),
             timestep=arr(self.opt["timestep"]),
             gravity=arr(self.opt["gravity"]),
             viscosity=arr(self.opt["viscosity"]),
             density=arr(self.opt["density"]),
         )
-        dof_iw, body_iw = _invweights(model)
+        dof_iw, body_iw, ten_iw = _invweights(model)
+        if contact_topk is None:
+            from mjrl_tpu_torch.physics.collision import contact_geom_ids
+            contact_topk = 64 if len(contact_geom_ids(model)[0]) > 64 else 0
         return replace(model, dof_invweight0=arr(dof_iw),
-                       body_invweight0=arr(body_iw))
+                       body_invweight0=arr(body_iw),
+                       ten_invweight0=arr(ten_iw, ntendon),
+                       contact_topk=int(contact_topk),
+                       row_freeze_step=bool(row_freeze_step))
 
 
 @dataclass

@@ -17,17 +17,24 @@ to MuJoCo's soft-constraint formulation, solved exactly:
 
 Rows, in MuJoCo's efc order: one boxed dry-friction row per dof with
 frictionloss, one signed row per limited scalar dof, one row per ball
-joint's rotation-angle limit, then one row per frictionless (condim 1)
-plane-sphere contact (``physics/collision.py``).  Equality and tendon rows,
-frictional contacts, other narrowphase pairs, the elliptic cone, the
-primal Newton solver and the noslip pass are ROADMAP.md M9 and raise.
+joint's rotation-angle limit, one row per fixed tendon (length limits, R
+from ``ten_invweight0``), then the contact rows of every narrowphase slot
+(``physics/collision.py``): one row per frictionless (condim 1) slot, then
+four pyramidal facets n +- mu t1, n +- mu t2 per condim-3 slot, in MuJoCo's
+tangent frame, every facet sharing the regularizer of diagApprox (iw1 +
+iw2) 2 mu^2 (1 + mu^2).  A condim class with more slots than the model's
+``contact_topk`` gives rows to its ``contact_topk`` deepest only, chosen
+per environment and row build; ``slot_ids`` name the slot each row holds,
+so a warm start is dropped row by row when the chosen set changes.
+Equality rows, condim 4 and 6, the elliptic cone, the primal Newton solver
+and the noslip pass are ROADMAP.md M9b and raise.
 
 The dual is solved by ``solve_qacc``: Nesterov-accelerated projected
 gradient descent in the diag(A+R)^(1/2)-scaled space, step 1/L with L from
 ``POWER_ITERS`` power iterations, adaptive (gradient-test) restart and a
 fixed number of sweeps, warm-started across substeps.  The planar path's
 ``physics/planar.py::_solve_qacc`` is the same algorithm on a component
-Cholesky factor, with the SOC branch this one leaves to M9.
+Cholesky factor, with the SOC branch this one leaves to M9b.
 """
 
 from types import SimpleNamespace
@@ -36,10 +43,12 @@ import numpy as np
 import torch
 
 from mjrl_tpu_torch.ops.linalg import SPDFactor
-from mjrl_tpu_torch.physics.collision import (contact_coeffs, contact_condims,
-                                              find_contacts,
-                                              plane_sphere_pairs)
-from mjrl_tpu_torch.physics.dynamics import ball_limit_terms
+from mjrl_tpu_torch.physics import math as pm
+from mjrl_tpu_torch.physics.collision import (contact_coeffs,
+                                              contact_geom_ids,
+                                              contact_pair_condims,
+                                              find_contacts)
+from mjrl_tpu_torch.physics.dynamics import ball_limit_terms, tendon_lengths
 from mjrl_tpu_torch.physics.kinematics import model_tables
 from mjrl_tpu_torch.physics.model import BALL, ELLIPTIC, Model
 
@@ -84,18 +93,28 @@ def check_supported(model: Model):
     if model.cone == ELLIPTIC:
         raise NotImplementedError(
             "the elliptic friction cone of the general solver needs "
-            "ROADMAP.md M9")
+            "ROADMAP.md M9b")
     if model.noslip_iters:
         raise NotImplementedError(
             "the noslip post-pass (noslip_iterations > 0) needs ROADMAP.md "
-            "M9")
-    if model.ntendon or model.neq:
+            "M9b")
+    if model.neq:
         raise NotImplementedError(
-            "tendon and equality rows need ROADMAP.md M9")
-    if model.contact_pairs and np.any(contact_condims(model) != 1):
+            "equality constraint rows need ROADMAP.md M9b")
+    if np.any(contact_pair_condims(model) > 3):
         raise NotImplementedError(
-            "frictional contacts (condim > 1) of the general solver need "
-            "ROADMAP.md M9")
+            "torsional and rolling friction (condim 4 and 6) of the general "
+            "solver need ROADMAP.md M9b")
+
+
+def _contact_counts(model: Model):
+    """Static {condim: rows-per-facet count} after the contact_topk cap."""
+    cd = contact_pair_condims(model)
+    counts = {}
+    for c in (1, 3):
+        n = int((cd == c).sum())
+        counts[c] = min(n, model.contact_topk) if model.contact_topk else n
+    return counts
 
 
 def _statics(model: Model, dtype, device):
@@ -137,9 +156,12 @@ def _statics(model: Model, dtype, device):
     s.ball_kb = {}
     for j in s.ball:
         s.ball_kb[j] = _kb(t.limit_solref[j], t.limit_solimp[j], h)
-    s.ncon = len(model.contact_pairs)
+    if model.ntendon:
+        s.ten_k, s.ten_b = _kb(t.ten_solref, t.ten_solimp, h)
+    g1, g2 = contact_geom_ids(model)
+    s.ncon = len(g1)
+    n_con_rows = 0
     if s.ncon:
-        g1, g2, _ = plane_sphere_pairs(model)
         gb = np.asarray(model.geom_body)
         b1, b2 = gb[g1], gb[g2]
         s.con_cf = contact_coeffs(model, dtype, device)         # (C, nv)
@@ -150,8 +172,21 @@ def _statics(model: Model, dtype, device):
         s.con_si = tuple(avg(t.geom_solimp, i) for i in range(5))
         s.con_k, s.con_b = _kb_components(
             avg(t.geom_solref, 0), avg(t.geom_solref, 1), s.con_si[1], h)
+        s.con_mu = torch.maximum(t.geom_friction[g1, 0],
+                                 t.geom_friction[g2, 0])
         s.con_iw = t.body_invweight0[b1, 0] + t.body_invweight0[b2, 0]
-    n_rest = s.lim_idx.size + len(s.ball) + s.ncon
+        cd = contact_pair_condims(model)
+        counts = _contact_counts(model)
+        # (condim, slot ids of the class, capped) in row order
+        s.classes = []
+        for c, facets in ((1, 1), (3, 4)):
+            idx = np.flatnonzero(cd == c)
+            if idx.size:
+                s.classes.append((c, torch.tensor(idx, device=device),
+                                  counts[c] < idx.size))
+                n_con_rows += facets * counts[c]
+    n_rest = s.lim_idx.size + len(s.ball) + model.ntendon + n_con_rows
+    s.n_static = s.fr_idx.size + n_rest - n_con_rows
     s.boxed = bool(s.fr_idx.size)
     lo.append(torch.zeros(n_rest, dtype=dtype, device=device))
     hi.append(torch.full((n_rest,), float("inf"), dtype=dtype,
@@ -162,20 +197,56 @@ def _statics(model: Model, dtype, device):
 
 
 def n_constraint_rows(model: Model):
-    """Static total row count: friction + limits + ball limits + contact
-    rows (the shape of the warm-start impulses threaded through step_n)."""
+    """Static total row count: friction + limits + ball limits + tendon
+    limits + contact rows after the contact_topk cap (the shape of the
+    warm-start impulses threaded through step_n)."""
     n_fr = int((np.asarray(model.dof_frictionloss) > 0).sum())
     n_lim = int((np.asarray(model.dof_limited) > 0).sum())
     n_ball = sum(1 for x in model.jnt_type if x == BALL)
-    return n_fr + n_lim + n_ball + len(model.contact_pairs)
+    cc = _contact_counts(model)
+    return n_fr + n_lim + n_ball + model.ntendon + cc[1] + 4 * cc[3]
+
+
+def _tangents(normal):
+    """MuJoCo's contact tangent frame (mju_makeFrame): seed (0, 1, 0)
+    unless |n_y| >= 0.5, then (0, 0, 1); Gram-Schmidt against n; t2 =
+    n x t1."""
+    vy = (torch.abs(normal[..., 1]) < 0.5).to(normal.dtype)
+    vz = 1.0 - vy
+    dotv = normal[..., 1] * vy + normal[..., 2] * vz
+    t1 = torch.stack([-normal[..., 0] * dotv, vy - normal[..., 1] * dotv,
+                      vz - normal[..., 2] * dotv], dim=-1)
+    t1 = t1 / torch.sqrt(torch.sum(t1 * t1, dim=-1, keepdim=True) + 1e-24)
+    return t1, pm.cross(normal, t1)
+
+
+def _total_order(x):
+    """Integer keys that sort as ``x`` in the IEEE total order (-0.0 below
+    +0.0), the order in which ``jax.lax.top_k`` compares floats."""
+    bits = x.contiguous().view(torch.int64 if x.element_size() == 8
+                               else torch.int32)
+    n = 8 * x.element_size() - 1
+    return bits ^ ((bits >> n) & ((1 << n) - 1))
+
+
+def _select(depths, idx, k):
+    """The contact_topk cap of one condim class: the k deepest of the
+    class's slots ``idx`` per row, as slot ids in ascending order (B, k).
+    Among equal depths the lower slot wins, as ``jax.lax.top_k`` picks."""
+    order = torch.sort(_total_order(depths[:, idx]), dim=1, descending=True,
+                       stable=True).indices[:, :k]
+    return torch.sort(idx[order], dim=1).values
 
 
 def constraint_rows(model: Model, data, cdof, qpos, qvel):
     """Assemble the constraint rows of a batch -> (J (B, C, nv), aref_pos
-    (B, C), b_row (B, C), active (B, C), R (B, C), lo (C,), hi (C,)).
+    (B, C), b_row (B, C), active (B, C), R (B, C), lo (C,), hi (C,),
+    slot_ids (B, C)).
 
     The velocity part of the reference acceleration is kept separate:
-    aref(v) = aref_pos - b_row * (J v)."""
+    aref(v) = aref_pos - b_row * (J v), so frozen rows are reused with only
+    J v recomputed.  ``slot_ids`` is -1 on rows whose identity never
+    changes and the emitted contact slot a contact row holds."""
     s = _statics(model, qpos.dtype, qpos.device)
     t = model_tables(model, qpos.dtype, qpos.device)
     B = qpos.shape[0]
@@ -217,26 +288,85 @@ def constraint_rows(model: Model, data, cdof, qpos, qvel):
         regs.append(((1.0 - imp_b) / imp_b
                      * t.dof_invweight0[da]).unsqueeze(-1))
 
+    if model.ntendon:
+        # one signed row per tendon with the constant Jacobian
+        L = tendon_lengths(model, qpos)
+        tlo, thi = t.ten_range[:, 0], t.ten_range[:, 1]
+        t_below = torch.clamp(tlo - L, min=0.0)
+        t_above = torch.clamp(L - thi, min=0.0)
+        t_lower = t_below >= t_above
+        t_sign = torch.where(t_lower, 1.0, -1.0).to(L.dtype)
+        t_dist = torch.where(t_lower, L - tlo, thi - L)
+        active_t = t.ten_limited * ((t_below > 0) | (t_above > 0))
+        imp_t = impedance(t.ten_solimp, torch.clamp(-t_dist, min=0.0))
+        rows.append(t_sign.unsqueeze(-1) * t.ten_J)
+        arefs.append(-s.ten_k * imp_t * t_dist)
+        brows.append(s.ten_b.expand_as(t_dist))
+        actives.append(active_t.to(L.dtype))
+        regs.append((1.0 - imp_t) / imp_t * t.ten_invweight0)
+
+    id_parts = []
     if s.ncon:
         depths, point, normal, _, _ = find_contacts(model, data)
-        # J[c, d] = cf[c, d] (cdof[d] . (p x n, n))
-        u = torch.cat([torch.linalg.cross(point, normal, dim=-1), normal],
-                      dim=-1)                                   # (B, C, 6)
-        rows.append(torch.einsum("Bdk,BCk->BCd", cdof, u) * s.con_cf)
+        pos_c = -depths                                   # dist - margin
+        active_c = (depths > 0).to(depths.dtype)
         imp_c = _impedance_components(s.con_si,
                                       torch.clamp(depths, min=0.0))
-        arefs.append(-s.con_k * imp_c * -depths)
-        brows.append(s.con_b.expand_as(depths))
-        actives.append((depths > 0).to(depths.dtype))
-        regs.append(torch.clamp((1.0 - imp_c) / imp_c * s.con_iw,
-                                min=1e-12))
+        t1, t2 = _tangents(normal)
+
+        def jac(dirs, pts, cf):
+            # J[c, d] = cf[c, d] (cdof[d] . (p x dir, dir))
+            u = torch.cat([pm.cross(pts, dirs), dirs], dim=-1)
+            return torch.einsum("Bdk,BKk->BKd", cdof, u) * cf
+
+        for cd, idx, capped in s.classes:
+            if capped:
+                ids = _select(depths, idx, model.contact_topk)
+                i3 = ids.unsqueeze(-1).expand(-1, -1, 3)
+                take = lambda x: torch.gather(x, 1, ids)
+                take3 = lambda x: torch.gather(x, 1, i3)
+                const = lambda x: x[ids]
+            else:
+                ids = idx.expand(B, -1)
+                take = take3 = lambda x: x[:, idx]
+                const = lambda x: x[idx]
+            pts, cf = take3(point), const(s.con_cf)
+            j_n = jac(take3(normal), pts, cf)
+            t_k, t_b, t_imp = const(s.con_k), const(s.con_b), take(imp_c)
+            t_pos, t_active = take(pos_c), take(active_c)
+            aref_c = -t_k * t_imp * t_pos
+            iw = const(s.con_iw)
+            if cd == 1:
+                facets = [(j_n, torch.clamp((1.0 - t_imp) / t_imp * iw,
+                                            min=1e-12))]
+            else:
+                mue = const(s.con_mu)
+                diag_approx = iw * 2.0 * mue * mue * (1.0 + mue * mue)
+                r_f = torch.clamp((1.0 - t_imp) / t_imp * diag_approx,
+                                  min=1e-12)
+                mu_j = mue.unsqueeze(-1)
+                facets = []
+                for j_t in (jac(take3(t1), pts, cf), jac(take3(t2), pts, cf)):
+                    for sign_f in (1.0, -1.0):
+                        facets.append((j_n + sign_f * mu_j * j_t, r_f))
+            for j_f, r_c in facets:
+                rows.append(j_f)
+                arefs.append(aref_c)
+                brows.append(t_b.expand_as(t_pos))
+                actives.append(t_active)
+                regs.append(r_c.expand_as(t_pos))
+                id_parts.append(ids)
 
     if not rows:
         z = qpos.new_zeros((B, 0))
-        return (qpos.new_zeros((B, 0, model.nv)), z, z, z, z, s.lo, s.hi)
+        return (qpos.new_zeros((B, 0, model.nv)), z, z, z, z, s.lo, s.hi,
+                torch.zeros((B, 0), dtype=torch.long, device=qpos.device))
+    slot_ids = torch.cat(
+        [torch.full((B, s.n_static), -1, dtype=torch.long,
+                    device=qpos.device)] + id_parts, dim=1)
     return (torch.cat(rows, dim=1), torch.cat(arefs, dim=1),
             torch.cat(brows, dim=1), torch.cat(actives, dim=1),
-            torch.cat(regs, dim=1), s.lo, s.hi)
+            torch.cat(regs, dim=1), s.lo, s.hi, slot_ids)
 
 
 def _matvec(a, x):
@@ -310,26 +440,34 @@ def solve_qacc(m, a0, j, aref, active, r, lam0, sweeps=SWEEPS, lo=None,
 
 
 def constrained_qacc(model: Model, data, cdof, qpos, qvel, m,
-                     qfrc_minus_bias, warm=None, sweeps=None):
-    """qacc under the implicit solver -> (qacc, qacc_smooth, lam).
+                     qfrc_minus_bias, warm=None, sweeps=None, ctx=None):
+    """qacc under the implicit solver -> (qacc, qacc_smooth, warm', ctx).
 
-    ``warm`` (B, C) seeds the dual iteration with the previous substep's
-    impulses (MuJoCo's warm start); None = cold zeros.  ``sweeps``
-    overrides the APGD iteration count; None = ``SWEEPS``.  Every ported
-    row keeps its identity from one solve to the next, so the impulses
-    carry over whole (the JAX package's per-slot invalidation only acts on
-    capped contact sets)."""
+    ``warm``/``warm'`` is the (impulses (B, C), slot_ids (B, C)) pair that
+    seeds the dual iteration from the previous substep's or RK4 stage's
+    solve (MuJoCo's warm start); None = cold zeros.  An impulse whose row
+    now holds another contact slot (the contact_topk set changed between
+    row builds) is dropped.  ``sweeps`` overrides the APGD iteration count;
+    None = ``SWEEPS``.  ``ctx`` (the returned ``constraint_rows`` tuple)
+    reuses frozen rows: J, positions, impedances and regularizers from an
+    earlier evaluation, with only the velocity part of aref recomputed."""
     factor = SPDFactor(m)
     a0 = factor.solve(qfrc_minus_bias)
-    j, aref_pos, b_row, active, r, lo, hi = constraint_rows(
-        model, data, cdof, qpos, qvel)
-    lam0 = torch.zeros_like(aref_pos) if warm is None else warm
+    if ctx is None:
+        ctx = constraint_rows(model, data, cdof, qpos, qvel)
+    j, aref_pos, b_row, active, r, lo, hi, slot_ids = ctx
+    if warm is None:
+        lam0 = torch.zeros_like(aref_pos)
+    else:
+        lam_prev, ids_prev = warm
+        lam0 = torch.where(slot_ids == ids_prev, lam_prev,
+                           torch.zeros_like(lam_prev))
     if j.shape[1] == 0:
-        return a0, a0, lam0
+        return a0, a0, (lam0, slot_ids), ctx
     s = _statics(model, qpos.dtype, qpos.device)
     aref = aref_pos - b_row * _matvec(j, qvel)
     qacc, lam = solve_qacc(m, a0, j, aref, active, r, lam0,
                            sweeps=SWEEPS if sweeps is None else sweeps,
                            lo=lo if s.boxed else None,
                            hi=hi if s.boxed else None, factor=factor)
-    return qacc, a0, lam
+    return qacc, a0, (lam, slot_ids), ctx

@@ -10,12 +10,15 @@ Integrators (matching MuJoCo):
 - RK4: classic 4-stage Runge-Kutta on (qpos, qvel), its stage sums in the
   JAX package's left-associated order and (h/6) * sum.
 
-Joint limits and contacts go through the penalty path (the reference
-acceleration ``dynamics.limit_qacc``, the forces
-``collision.contact_qfrc``) or, with ``solver="pgs"``, through the implicit
-dual (``physics/solver.py``), cold at the first substep of a control step
-(``SWEEPS``) and warm-started at the others (``SWEEPS_WARM``).  Contacts
-are plane-sphere pairs only; other pairs raise naming ROADMAP.md M9.
+Joint limits, tendon limits and contacts go through the penalty path (the
+reference accelerations ``dynamics.limit_qacc`` / ``tendon_limit_qacc``,
+the forces ``collision.contact_qfrc``) or, with ``solver="pgs"``, through
+the implicit dual (``physics/solver.py``), cold at the first substep of a
+control step (``SWEEPS``) and warm-started at the others and at RK4 stages
+2-4 (``SWEEPS_WARM``).  RK4 rebuilds the constraint rows at every stage,
+as MuJoCo does, unless the model sets ``row_freeze_step``: then the rows
+of the first stage of the first substep hold for the whole control step
+and only their J v is recomputed.
 
 Every operation here is an eager PyTorch operation: no kernel of the
 port's ``csrc/`` is launched on this path.
@@ -26,7 +29,7 @@ import torch
 from mjrl_tpu_torch.ops.linalg import spd_solve
 from mjrl_tpu_torch.physics import dynamics as dyn
 from mjrl_tpu_torch.physics import math as pm
-from mjrl_tpu_torch.physics.collision import contact_qfrc, plane_sphere_pairs
+from mjrl_tpu_torch.physics.collision import contact_qfrc
 from mjrl_tpu_torch.physics.kinematics import body_frames, model_tables
 from mjrl_tpu_torch.physics.model import (BALL, FREE, PGS, RK4, HINGE,
                                           SLIDE, Model, State)
@@ -39,7 +42,6 @@ def check_model(model: Model):
     """Raise NotImplementedError for a model this engine does not step."""
     if model.solver == PGS:
         check_supported(model)
-    plane_sphere_pairs(model)
 
 
 def _quat_step(quat, w, h):
@@ -73,11 +75,12 @@ def integrate_pos(model: Model, qpos, qvel, h):
     return torch.cat(segments, dim=-1) if segments else qpos
 
 
-def _forces_and_mass(model: Model, state: State, ctrl):
+def _forces_and_mass(model: Model, state: State, ctrl, body_pos=None):
     """Everything qacc needs -> (M, qfrc_total, bias, qacc_ref, ctx):
     qacc_ref the penalty limits' reference acceleration (None under the
-    implicit solver), ctx (data, cdof) for the implicit solver's rows."""
-    data = body_frames(model, state.qpos)
+    implicit solver), ctx (data, cdof) for the implicit solver's rows.
+    ``body_pos`` (B, nbody, 3): per-row body offsets (moved scenery)."""
+    data = body_frames(model, state.qpos, body_pos)
     cdof = dyn.compute_cdof(model, data)
     cvel, cdofdot = dyn.compute_velocities(model, data, cdof, state.qvel)
     m, bias = dyn.mass_and_bias(model, data, cdof, cvel, cdofdot,
@@ -88,6 +91,9 @@ def _forces_and_mass(model: Model, state: State, ctrl):
         qfrc = qfrc + dyn.spring_force(model, state.qpos)
     if (model.dof_damping != 0).any():
         qfrc = qfrc + dyn.damping_force(model, state.qvel)
+    if (model.ten_stiffness != 0).any() or (model.ten_damping != 0).any():
+        qfrc = qfrc + dyn.tendon_passive_force(model, state.qpos,
+                                               state.qvel)
     if dyn.has_fluid(model):
         qfrc = qfrc + dyn.project_body_forces(
             model, cdof, dyn.fluid_force(model, data, cvel))
@@ -100,46 +106,53 @@ def _forces_and_mass(model: Model, state: State, ctrl):
     if BALL in model.jnt_type:
         qacc_ref = qacc_ref + dyn.ball_limit_qacc(model, state.qpos,
                                                   state.qvel)
+    if model.ntendon:
+        qacc_ref = qacc_ref + dyn.tendon_limit_qacc(model, state.qpos,
+                                                    state.qvel)
     return m, qfrc, bias, qacc_ref, None
 
 
-def _qacc(model: Model, state: State, ctrl, warm=None, sweeps=None):
-    """Forward-dynamics acceleration -> (qacc, warm'): warm seeds the
-    implicit solver's impulses, warm' re-seeds the next substep or RK4
-    stage (None on the penalty path)."""
-    m, qfrc, bias, qacc_ref, ctx = _forces_and_mass(model, state, ctrl)
+def _qacc(model: Model, state: State, ctrl, warm=None, sweeps=None,
+          rows=None, body_pos=None):
+    """Forward-dynamics acceleration -> (qacc, warm', rows'): warm seeds
+    the implicit solver's impulses, warm' re-seeds the next substep or RK4
+    stage; ``rows`` reuses frozen constraint rows, rows' are the rows
+    built or reused (both None on the penalty path)."""
+    m, qfrc, bias, qacc_ref, ctx = _forces_and_mass(model, state, ctrl,
+                                                    body_pos)
     if model.solver == PGS:
         data, cdof = ctx
-        qacc, _, lam = constrained_qacc(model, data, cdof, state.qpos,
-                                        state.qvel, m, qfrc - bias, warm,
-                                        sweeps=sweeps)
-        return qacc, lam
-    return spd_solve(m, qfrc - bias) + qacc_ref, None
+        qacc, _, lam, rows = constrained_qacc(
+            model, data, cdof, state.qpos, state.qvel, m, qfrc - bias, warm,
+            sweeps=sweeps, ctx=rows)
+        return qacc, lam, rows
+    return spd_solve(m, qfrc - bias) + qacc_ref, None, None
 
 
-def qacc_smooth(model: Model, state: State, ctrl):
+def qacc_smooth(model: Model, state: State, ctrl, body_pos=None):
     """qacc = M^-1 (qfrc_total - bias) + the penalty limits' reference
     acceleration, or the implicit solver's constrained acceleration
     (MuJoCo's mj_forward qacc)."""
-    return _qacc(model, state, ctrl)[0]
+    return _qacc(model, state, ctrl, body_pos=body_pos)[0]
 
 
-def _euler_step(model: Model, state: State, ctrl, warm=None, sweeps=None):
+def _euler_step(model: Model, state: State, ctrl, warm=None, sweeps=None,
+                body_pos=None):
     t = model_tables(model, state.qpos.dtype, state.qpos.device)
     h = t.timestep
-    m, qfrc, bias, qacc_ref, ctx = _forces_and_mass(model, state, ctrl)
+    m, qfrc, bias, qacc_ref, ctx = _forces_and_mass(model, state, ctrl,
+                                                    body_pos)
     # implicit joint damping: M + h diag(B)
     mh = m + h * torch.diag(t.dof_damping)
     if model.solver == PGS:
         data, cdof = ctx
         # constraint QP against M (as mj_forward), then mj_Euler's implicit
         # damping integrates smooth + constraint force with M + hB
-        qacc_c, a0, lam = constrained_qacc(
+        qacc_c, a0, warm_out, _ = constrained_qacc(
             model, data, cdof, state.qpos, state.qvel, m, qfrc - bias,
             warm, sweeps=sweeps)
         qfrc_con = torch.matmul(m, (qacc_c - a0).unsqueeze(-1))[..., 0]
         qacc = spd_solve(mh, qfrc - bias + qfrc_con)
-        warm_out = lam
     else:
         qacc = spd_solve(mh, qfrc - bias) + qacc_ref
         warm_out = None
@@ -148,49 +161,61 @@ def _euler_step(model: Model, state: State, ctrl, warm=None, sweeps=None):
     return State(qpos=qpos, qvel=qvel), warm_out
 
 
-def _rk4_step(model: Model, state: State, ctrl, warm=None, sweeps=None):
+def _rk4_step(model: Model, state: State, ctrl, warm=None, sweeps=None,
+              rows=None, body_pos=None):
     h = model_tables(model, state.qpos.dtype, state.qpos.device).timestep
-    k1_v, w = _qacc(model, state, ctrl, warm, sweeps)
+    k1_v, w, rows = _qacc(model, state, ctrl, warm, sweeps, rows, body_pos)
     kp, kv = state.qvel, k1_v
     acc_p, acc_v = kp, kv
-    # stages 2-4, the constraint rows rebuilt at every stage (MuJoCo's
-    # mj_RungeKutta), warm-started from the previous stage
+    # stages 2-4, warm-started from the previous stage; the constraint
+    # rows rebuilt at every stage (MuJoCo's mj_RungeKutta) unless the model
+    # freezes them
+    stage_rows = rows if model.row_freeze_step else None
     for c_i, w_i in ((0.5, 2.0), (0.5, 2.0), (1.0, 1.0)):
         ch = c_i * h
         s = State(qpos=integrate_pos(model, state.qpos, kp, ch),
                   qvel=state.qvel + ch * kv)
-        kv, w = _qacc(model, s, ctrl, w, SWEEPS_WARM)
+        kv, w, _ = _qacc(model, s, ctrl, w, SWEEPS_WARM, stage_rows,
+                         body_pos)
         kp = s.qvel
         acc_p = acc_p + w_i * kp
         acc_v = acc_v + w_i * kv
     qpos = integrate_pos(model, state.qpos, acc_p / 6.0, h)
     qvel = state.qvel + (h / 6.0) * acc_v
-    return State(qpos=qpos, qvel=qvel), w
+    return State(qpos=qpos, qvel=qvel), w, rows
 
 
-def step_warm(model: Model, state: State, ctrl, warm=None, sweeps=None):
-    """One physics timestep -> (state', warm'): warm/warm' carry the
-    implicit solver's impulses across consecutive substeps (None on the
-    penalty path); ``sweeps`` overrides the dual's iteration count (None =
-    the cold default)."""
+def step_warm(model: Model, state: State, ctrl, warm=None, sweeps=None,
+              rows=None, body_pos=None):
+    """One physics timestep -> (state', warm', rows'): warm/warm' carry
+    the implicit solver's impulses across consecutive substeps, rows/rows'
+    an RK4 model's frozen constraint rows (all None on the penalty path);
+    ``sweeps`` overrides the dual's iteration count (None = the cold
+    default); ``body_pos`` as in ``kinematics.body_frames``."""
     if model.integrator == RK4:
-        return _rk4_step(model, state, ctrl, warm, sweeps)
-    return _euler_step(model, state, ctrl, warm, sweeps)
+        return _rk4_step(model, state, ctrl, warm, sweeps, rows, body_pos)
+    s2, w2 = _euler_step(model, state, ctrl, warm, sweeps, body_pos)
+    return s2, w2, None
 
 
-def step(model: Model, state: State, ctrl):
+def step(model: Model, state: State, ctrl, body_pos=None):
     """One physics timestep with the model's integrator."""
-    return step_warm(model, state, ctrl)[0]
+    return step_warm(model, state, ctrl, body_pos=body_pos)[0]
 
 
-def step_n(model: Model, state: State, ctrl, n: int):
+def step_n(model: Model, state: State, ctrl, n: int, body_pos=None):
     """``n`` substeps with constant ctrl.  Under the implicit solver the
     first substep solves cold with ``SWEEPS`` iterations and the others
-    warm-start from the previous substep's impulses with ``SWEEPS_WARM``."""
-    warm = None
-    for i in range(n):
-        state, warm = step_warm(
-            model, state, ctrl, warm,
-            sweeps=(SWEEPS if i == 0 else SWEEPS_WARM)
-            if model.solver == PGS else None)
+    warm-start from the previous substep's impulses with ``SWEEPS_WARM``;
+    with ``row_freeze_step`` the first substep's rows hold for all ``n``."""
+    if model.solver != PGS:
+        for _ in range(n):
+            state = step(model, state, ctrl, body_pos)
+        return state
+    state, warm, rows = step_warm(model, state, ctrl, None, SWEEPS,
+                                  body_pos=body_pos)
+    frozen = rows if model.row_freeze_step else None
+    for _ in range(n - 1):
+        state, warm, _ = step_warm(model, state, ctrl, warm, SWEEPS_WARM,
+                                   frozen, body_pos)
     return state

@@ -26,6 +26,8 @@ from mjrl_tpu_torch import convert, envs as tenvs
 from mjrl_tpu_torch.envs import gym_suite as tsuite
 from mjrl_tpu_torch.models import policies as tpol
 from mjrl_tpu_torch.models.fc_network import identity_transforms
+from mjrl_tpu_torch.physics.collision import find_contacts
+from mjrl_tpu_torch.physics.kinematics import body_frames
 from mjrl_tpu_torch.samplers import rollout as trollout
 
 from test_torch_kernel_host import cheetah_explosion_states, contact_states
@@ -162,8 +164,27 @@ def test_cone_and_solver_arguments():
     assert ell._planar.cone == 1 and ell.model.cone == 1
     assert tsuite.HopperEnv(dtype=torch.float64, device="cpu",
                             cone="pyramidal")._planar.cone == 0
-    with pytest.raises(NotImplementedError, match="planar fast path"):
-        tsuite.HopperEnv(dtype=torch.float64, device="cpu", solver="penalty")
+    # the penalty solver does not take the planar fast path: the general
+    # engine steps it (capsule-plane contacts included), as the JAX package
+    pen = tsuite.HopperEnv(dtype=torch.float64, device="cpu",
+                           solver="penalty")
+    assert pen._planar is None and pen.model.solver == 0
+    jpen = jsuite.HopperEnv(dtype=jnp.float64, solver="penalty")
+    rng = np.random.RandomState(4)
+    q = pen.model.qpos0 + rng.uniform(-0.05, 0.05, (3, 6))
+    q[:, 1] = (1.17, 1.19, 1.3)           # two feet pressed into the floor
+    depths = find_contacts(pen.model, body_frames(pen.model,
+                                                  torch.tensor(q)))[0]
+    assert (depths.max(1).values > 0).tolist() == [True, True, False]
+    v = rng.uniform(-0.5, 0.5, (3, 6))
+    a = rng.uniform(-1, 1, (3, 3))
+    ts = pen.step(pen.state_from_qpos_qvel(q, v), torch.tensor(a))
+    js = jax.vmap(jpen.reset)(jax.random.split(jax.random.PRNGKey(0), 3))
+    js = jax.vmap(jpen.set_env_state)(js, dict(qp=jnp.asarray(q),
+                                               qv=jnp.asarray(v)))
+    js = jax.jit(jax.vmap(jpen.step))(js, jnp.asarray(a))
+    np.testing.assert_allclose(ts.obs.numpy(), np.asarray(js.obs),
+                               rtol=1e-9, atol=1e-9)
     # a float32 env rounds the model's constants to float32, like the JAX
     # package's float32 model
     f32 = tsuite.HopperEnv(device="cpu")

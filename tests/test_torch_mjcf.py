@@ -149,7 +149,8 @@ _MOTOR = '<actuator><motor joint="j"/></actuator>'
     ("hinge", '<actuator><position joint="j" kp="2"/></actuator>',
      "position/velocity/general"),
     ("hinge", '<tendon><fixed name="t"><joint joint="j" coef="1"/></fixed>'
-     '</tendon>', "tendons"),
+     '</tendon><actuator><motor tendon="t"/></actuator>',
+     "tendon transmissions"),
     ("hinge", '<equality><joint joint1="j"/></equality>', "equality"),
     ("hinge", '<contact><exclude body1="world" body2="world"/></contact>',
      "contact excludes"),

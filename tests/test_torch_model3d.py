@@ -1,6 +1,7 @@
 """Port vs JAX package: host-side model building for the models of the
-general engine (point mass, 7-DoF reacher, InvertedPendulum, and the
-``ball`` / ``freebody`` golden XMLs with their ball and free joints).
+general engine (point mass, 7-DoF reacher, InvertedPendulum, peg
+insertion, Ant, Humanoid with its fixed tendons and contact_topk cap, and
+the ``ball`` / ``freebody`` golden XMLs with their ball and free joints).
 
 Every table that ``finalize`` produces is held to the JAX Model's field by
 field: float64 at 1e-12, the inverse-weight tables at 1e-9 (the port takes
@@ -26,7 +27,7 @@ from mjrl_tpu_torch.physics import model as tmodel
 from mjrl_tpu_torch.physics.mjcf import load_mjcf
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
-INVW = ("dof_invweight0", "body_invweight0")
+INVW = ("dof_invweight0", "body_invweight0", "ten_invweight0")
 FIELDS = [f.name for f in dataclasses.fields(tmodel.Model)]
 
 
@@ -47,6 +48,12 @@ BUILDERS = {
     "freebody": (lambda: jax_load_mjcf(xml_string=_golden_xml("freebody")),
                  lambda: load_mjcf(xml_string=_golden_xml("freebody")),
                  "penalty"),
+    "peg_insertion": (jassets.peg_insertion_model,
+                      tassets.peg_insertion_model, "pgs"),
+    "ant": (lambda: jax_load_mjcf(jax_gym_asset("ant.xml")),
+            lambda: load_mjcf(_gym_asset("ant.xml")), "newton"),
+    "humanoid": (lambda: jax_load_mjcf(jax_gym_asset("humanoid.xml")),
+                 lambda: load_mjcf(_gym_asset("humanoid.xml")), "newton"),
 }
 
 

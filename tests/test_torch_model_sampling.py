@@ -171,7 +171,15 @@ def test_reward_registry_matches_jax():
               {"observations": torch.tensor(re)})["rewards"],
           jrf.get_reward_function("mjrl_reacher_7dof-v0")(
               {"observations": jnp.asarray(re)})["rewards"], EXACT)
-    with pytest.raises(NotImplementedError, match="M9"):
-        trf.get_reward_function("mjrl_peg_insertion-v0")(
-            {"observations": torch.zeros(1, 2, 3)})
+    # peg insertion: some peg bottoms within the 0.06 bonus radius of the
+    # target, some beyond the [-10, 10] clip
+    pg = rng.normal(0, 4, size=(3, 6, 20))
+    pg[:, ::2, -3:] = pg[:, ::2, -6:-3] + rng.normal(0, 0.02, (3, 3, 3))
+    pg[:, ::2, -6:-3] = np.clip(pg[:, ::2, -6:-3], -9.0, 9.0)
+    pg[:, ::2, -3:] = np.clip(pg[:, ::2, -3:], -9.0, 9.0)
+    want = jrf.get_reward_function("mjrl_peg_insertion-v0")(
+        {"observations": jnp.asarray(pg)})["rewards"]
+    assert 0 < int((np.asarray(want) > 0).sum()) < want.size
+    close(trf.get_reward_function("mjrl_peg_insertion-v0")(
+              {"observations": torch.tensor(pg)})["rewards"], want, EXACT)
     assert trf.get_reward_function("no-such-env") is None
