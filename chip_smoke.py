@@ -114,16 +114,41 @@ kernel, with its launches per control step and the device's busy share:
             MLPBaseline -> NPG -> train_agent with tools/train_gym.py's
             hyperparameters (64-64, init_log_std -0.5, step 0.05, gamma
             0.995, GAE 0.97, MLPBaseline reg 1e-3, batch 64, 2 epochs),
-            4096 x 50, 2 iterations.
+            4096 x 50, 1 iteration (cut from 2).
 26. train_ant_npg  the same on Ant-v3 (rows rebuilt at every RK4 stage),
             4096 environments, 2 iterations, the horizon cut from 1000 to
-            the largest that keeps a rollout within 0.55 of 40 s by the
-            measured seconds of a 2-step rollout; the cut is printed.
+            the largest that keeps a rollout within 0.55 of 30 s (cut from
+            40 s) by the measured seconds of a 2-step rollout; the cut is
+            printed.
 27. rollout_humanoid  HumanoidEnv (140 slots, the condim-1 class capped at
             64, 2 fixed tendons), 4096 x 10 (cut from 1000).
 28. contact_card_vs_cpu  float64, B 8: 2 control steps of peg and Ant from
             tests/golden's contact states on the card and on the CPU: obs,
             state and reward within 1e-9, equal slot_ids.
+
+The rest of the general engine (M9b: condim 4 and 6, the elliptic cone,
+the primal Newton solver, noslip, equalities, servos and transmissions)
+and the Adroit hand, each phase asserting no launch of either planar kernel:
+
+29. m9b_card_vs_cpu  float64, B 8, 2 control steps on the card and on the
+            CPU within 1e-9: a sphere on a plane at condim 4 and 6 (dual
+            and Newton), the elliptic cone on Hopper-v3's contact states
+            through the general engine, a weld, a connect and a joint
+            equality, an affine servo, a vector-gear motor on a ball joint
+            and a tendon-transmission motor.
+30. relocate_card_vs_cpu  float64: the 20 first grasp states of
+            tests/golden/contact_adroit.npz through qacc_smooth on the card
+            and on the CPU (1e-9 relative), the card against MuJoCo's golden
+            qacc (median relative error < 0.05); one control step from 8
+            golden states, card against CPU.
+31. rollout_relocate  AdroitRelocateEnv (36 dof, 30 servos, 709 rows,
+            Newton 25 iterations, noslip), 4096 x 20 (the horizon cut from
+            200), random 64-64 policy, float32.
+32. dapg_relocate  examples/torch_dapg_relocate.py at the example's widths
+            (64-64 policy, MLPBaseline, 50 paths): 2 expert demos made on
+            the card at horizon 25, 2 BC epochs, 1 DAPG iteration at horizon
+            25; finite statistics, the KL within the guard; the success rate
+            printed, not checked.
 
 Each phase's launches are counted from just before it to just after.  The
 last line is {"ok": true, "device": {...}}.
@@ -149,6 +174,7 @@ from mjrl_tpu_torch.baselines import (LinearBaseline, MLPBaseline,
                                      QuadraticBaseline)
 from mjrl_tpu_torch.device import make_generator
 from mjrl_tpu_torch.envs import GymEnv
+from mjrl_tpu_torch.envs.adroit import AdroitRelocateEnv
 from mjrl_tpu_torch.envs.gym_suite import (AntEnv, HalfCheetahEnv,
                                            HopperEnv, HumanoidEnv,
                                            InvertedPendulumEnv, Walker2dEnv)
@@ -161,7 +187,10 @@ from mjrl_tpu_torch.ops import cuda_planar
 from mjrl_tpu_torch.physics import dynamics, planar, solver
 from mjrl_tpu_torch.physics.collision import contact_pair_condims
 from mjrl_tpu_torch.physics.kinematics import body_frames
+from mjrl_tpu_torch.physics.mjcf import load_mjcf
+from mjrl_tpu_torch.physics.model import ELLIPTIC, State
 from mjrl_tpu_torch.physics.planar import step_n_arrays
+from mjrl_tpu_torch.physics.step import qacc_smooth, step_n
 from mjrl_tpu_torch.samplers.rollout import rollout_batch, sample_paths
 from mjrl_tpu_torch.utils.train_agent import train_agent
 
@@ -1682,10 +1711,11 @@ def m10_card_vs_cpu():
 # seconds by cutting its horizon: the rollout gets this share of it, from
 # a 2-step rollout's seconds per step (a training rollout's steps took up to
 # 1.34 x as long, and the baseline fit ~0.2 s per step of horizon, on an
-# H100 at 700 W)
-ANT_ITER_S = 40.0
+# H100 at 700 W); cut from 40 s to keep the whole script near 600 s
+ANT_ITER_S = 30.0
 ANT_ROLLOUT_SHARE = 0.55
 M9A_NITER = 2
+PEG_NITER = 1              # cut from 2 to keep the whole script near 600 s
 M9A_CARD_TOL = 1e-9
 
 
@@ -1750,10 +1780,11 @@ def ant_horizon():
     return horizon, per_step, launches
 
 
-def train_npg_general(env_id, horizon, phase, topk, frozen, extra):
+def train_npg_general(env_id, horizon, phase, topk, frozen, extra,
+                      niter=M9A_NITER):
     """NPG on ``env_id`` through GymEnv -> MLP -> MLPBaseline -> NPG ->
     train_agent, with tools/train_gym.py's hyperparameters (64-64,
-    init_log_std -0.5, step 0.05, gamma 0.995, GAE 0.97), M9A_NITER
+    init_log_std -0.5, step 0.05, gamma 0.995, GAE 0.97), ``niter``
     iterations of NUM_ENVS x ``horizon``; no planar kernel launched."""
     e = GymEnv(env_id, horizon=horizon)
     e.env.horizon = horizon              # the rollout reads the env's own
@@ -1769,13 +1800,13 @@ def train_npg_general(env_id, horizon, phase, topk, frozen, extra):
         job = os.path.join(tmp, phase)
         with contextlib.redirect_stdout(sys.stderr):
             _, counts, seconds = run_counted(lambda: train_agent(
-                job, agent, seed=0, niter=M9A_NITER, num_traj=NUM_ENVS,
+                job, agent, seed=0, niter=niter, num_traj=NUM_ENVS,
                 gamma=0.995, gae_lambda=0.97, save_freq=10))
     if counts != NO_LAUNCHES:
         raise AssertionError(f"{phase}: launched {counts}")
     log = agent.logger.log
     for k, vals in log.items():
-        if len(vals) != M9A_NITER or not np.all(np.isfinite(vals)):
+        if len(vals) != niter or not np.all(np.isfinite(vals)):
             raise AssertionError(f"{phase}: logged {k} not finite: {vals}")
     if not np.all(np.isfinite(policy.get_param_values())):
         raise AssertionError(f"{phase}: policy parameters not finite")
@@ -1790,7 +1821,7 @@ def train_npg_general(env_id, horizon, phase, topk, frozen, extra):
         1)
     iteration_s = [a + b + c for a, b, c in zip(
         log["time_sampling"], log["time_npg"], log["time_VF"])]
-    emit({"phase": phase, "env": env_id, "iterations": M9A_NITER,
+    emit({"phase": phase, "env": env_id, "iterations": niter,
           "num_traj": NUM_ENVS, "horizon": horizon, **extra,
           "seconds": seconds, "iteration_seconds": iteration_s,
           "kernel_launches": counts, "num_samples": log["num_samples"],
@@ -1807,7 +1838,9 @@ def train_npg_general(env_id, horizon, phase, topk, frozen, extra):
 
 def phase_train_peg_npg():
     return train_npg_general("mjrl_peg_insertion-v0", PegEnv.horizon,
-                             "train_peg_npg", 64, True, {})
+                             "train_peg_npg", 64, True,
+                             {"iterations_cut_from": M9A_NITER},
+                             niter=PEG_NITER)
 
 
 def phase_train_ant_npg():
@@ -1888,6 +1921,283 @@ def phase_contact_card_vs_cpu():
     rec["seconds"] = time.time() - t_start
     emit(rec)
     return NO_LAUNCHES
+
+
+# ---- M9b: the rest of the general engine and the Adroit hand -----------------
+
+M9B_TOL = 1e-9
+RELOCATE_HORIZON = 20      # rollout_relocate's cut of the 200-step horizon
+DAPG_HORIZON = 25          # dapg_relocate's cut
+
+M9B_CONDIM = """<mujoco><option timestep="0.002" {opt}/><worldbody>
+<geom type="plane" size="1 1 0.1" friction="1 0.01 0.0001"/>
+<body pos="0 0 0.034"><joint type="slide" axis="1 0 0"/>
+<joint type="slide" axis="0 1 0"/><joint type="slide" axis="0 0 1"/>
+<joint type="hinge" axis="1 0 0"/><joint type="hinge" axis="0 1 0"/>
+<joint type="hinge" axis="0 0 1"/><geom type="sphere" size="0.035"
+condim="{condim}" friction="1 0.005 0.0001"/></body></worldbody></mujoco>"""
+M9B_EQUALITY = """<mujoco><worldbody>
+<body name="A" pos="0 0 1"><joint name="ja" type="hinge" axis="0 1 0"
+damping="0.2"/><geom type="capsule" fromto="0 0 0 0.4 0 0" size="0.04"
+contype="0" conaffinity="0"/><body name="B" pos="0.4 0 0"><joint name="jb"
+type="hinge" axis="0 1 0" damping="0.1"/><geom type="capsule"
+fromto="0 0 0 0.3 0 0" size="0.03" contype="0" conaffinity="0"/></body>
+</body><body name="C" pos="0.7 0 1"><joint name="jc" type="hinge"
+axis="0 1 0" damping="0.1"/><geom type="capsule" fromto="0 0 0 0.2 0 0"
+size="0.03" contype="0" conaffinity="0"/></body>
+<body name="D" pos="0 1 1"><joint type="free"/><geom type="box"
+size="0.1 0.08 0.06" contype="0" conaffinity="0"/></body>
+<body name="E" pos="0.5 1 1" euler="0 0 0.3"><joint type="free"/>
+<geom type="box" size="0.1 0.08 0.06" contype="0" conaffinity="0"/></body>
+</worldbody><equality><joint joint1="ja" joint2="jb"
+polycoef="0.1 0.5 0.2 0 0"/><connect body1="B" body2="C" anchor="0.3 0 0"/>
+<weld body1="D" body2="E" anchor="0.2 0 0" torquescale="0.7"/></equality>
+<actuator><motor joint="ja"/><motor joint="jc"/></actuator></mujoco>"""
+M9B_ACTUATORS = """<mujoco><worldbody>
+<body pos="0 0 1"><joint name="sh" type="hinge" axis="0 1 0" damping="0.3"/>
+<geom type="capsule" fromto="0 0 0 0.4 0 0" size="0.04" contype="0"
+conaffinity="0"/><body pos="0.4 0 0"><joint name="j1" type="hinge"
+axis="0 1 0" damping="0.1"/><geom type="capsule" fromto="0 0 0 0.3 0 0"
+size="0.03" contype="0" conaffinity="0"/></body></body>
+<body pos="1 0 1"><joint name="b" type="ball" damping="0.2" stiffness="5"/>
+<geom type="capsule" fromto="0 0 0 0 0 -0.3" size="0.04" contype="0"
+conaffinity="0"/></body></worldbody>
+<tendon><fixed name="t" range="-0.4 0.4"><joint joint="sh" coef="1"/>
+<joint joint="j1" coef="-0.5"/></fixed></tendon>
+<actuator><position joint="sh" kp="50" kv="3" gear="2"/>
+<motor joint="b" gear="1 0.5 0.25" ctrlrange="-2 2" ctrllimited="true"/>
+<motor tendon="t" gear="3"/></actuator></mujoco>"""
+
+
+def _m9b_scenes():
+    """name -> (float64 model, substeps per control step, initial (qpos,
+    qvel, ctrl) of B 8)."""
+    B = 8
+    rng = np.random.RandomState(29)
+
+    def condim(cd, opt="", **kw):
+        q = np.zeros((B, 6))
+        q[:, 2] = rng.uniform(-0.002, 0.0005, B)
+        v = rng.normal(0, 1, (B, 6))
+        v[:, 5] = rng.uniform(-8, 8, B)
+        m = load_mjcf(xml_string=M9B_CONDIM.format(condim=cd, opt=opt))
+        return m.finalize(solver="newton", **kw), 5, (q, v, np.zeros((B, 0)))
+
+    def xml_scene(xml, **kw):
+        m = load_mjcf(xml_string=xml).finalize(**kw)
+        q = np.tile(m.qpos0, (B, 1)) + rng.uniform(-0.3, 0.3, (B, m.nq))
+        for j, jt in enumerate(m.jnt_type):
+            if jt in (0, 1):                  # free, ball: unit quaternions
+                qa = m.jnt_qposadr[j] + (3 if jt == 0 else 0)
+                quat = q[:, qa:qa + 4] + np.array([1.0, 0, 0, 0])
+                q[:, qa:qa + 4] = quat / np.linalg.norm(quat, axis=1,
+                                                        keepdims=True)
+        return m, 5, (q, rng.uniform(-1, 1, (B, m.nv)),
+                      rng.uniform(-1.5, 1.5, (B, m.nu)))
+
+    hopper = load_mjcf(os.path.join(HERE, "mjrl_tpu_torch", "envs", "mjcf",
+                                    "hopper.xml"))
+    hopper.opt["cone"] = ELLIPTIC
+    g = np.load(os.path.join(HERE, "tests", "golden", "contact_hopper.npz"))
+    idx = np.flatnonzero(g["ncon"] > 0)[:B]
+    return {
+        "condim4": condim(4),
+        "condim6": condim(6),
+        "condim4_newton_noslip": condim(4, 'noslip_iterations="10"',
+                                        newton_iters=25),
+        "hopper_elliptic": (hopper.finalize(solver="newton"), 4,
+                            (g["qpos"][idx], g["qvel"][idx],
+                             g["ctrl"][idx])),
+        "equalities": xml_scene(M9B_EQUALITY, solver="newton"),
+        "actuators": xml_scene(M9B_ACTUATORS),
+    }
+
+
+def phase_m9b_card_vs_cpu():
+    """Float64, B 8: 2 control steps of each M9b scene on the card and on
+    the CPU within M9B_TOL (qvel relative to its largest entry)."""
+    rec = {"phase": "m9b_card_vs_cpu", "B": 8, "control_steps": 2,
+           "dtype": "float64", "rtol_atol": M9B_TOL}
+    t_start = time.time()
+    for name, (model, n, (q, v, u)) in _m9b_scenes().items():
+        out = {}
+        for dev in ("cuda", "cpu"):
+            kw = dict(dtype=torch.float64, device=dev)
+            s = State(qpos=torch.tensor(q, **kw), qvel=torch.tensor(v, **kw))
+            ctrl = torch.tensor(u, **kw)
+
+            def run():
+                states = [s]
+                for _ in range(2):
+                    states.append(step_n(model, states[-1], ctrl, n))
+                return states[1:]
+            out[dev], counts, _ = run_counted(run)
+            if counts != NO_LAUNCHES:
+                raise AssertionError(f"m9b {name} launched {counts}")
+            if dev == "cuda":
+                launches, busy, _ = profiled_window(
+                    lambda: step_n(model, s, ctrl, n), 1)
+        errs = {}
+        for t, (a, b) in enumerate(zip(out["cuda"], out["cpu"])):
+            for k in ("qpos", "qvel"):
+                x, y = getattr(a, k).cpu(), getattr(b, k)
+                scale = max(float(y.abs().max()), 1.0) if k == "qvel" else 1.0
+                torch.testing.assert_close(
+                    x, y, rtol=M9B_TOL, atol=M9B_TOL * scale,
+                    msg=lambda m: f"m9b {name} {k} step {t}: {m}")
+                if not torch.isfinite(x).all():
+                    raise AssertionError(f"m9b {name}: {k} not finite")
+                errs[k] = max(errs.get(k, 0.0), (x - y).abs().max().item())
+        rec[name] = {"max_abs_err": errs, "substeps": n,
+                     "constraint_rows": solver.n_constraint_rows(model)
+                     if model.solver else 0,
+                     "device_launches_per_step": launches,
+                     "device_busy_share": busy}
+    rec["seconds"] = time.time() - t_start
+    emit(rec)
+    return NO_LAUNCHES
+
+
+def _relocate_scenery(n, seed):
+    rng = np.random.RandomState(seed)
+    return {"obj_pos": np.c_[rng.uniform(-0.15, 0.15, n),
+                             rng.uniform(-0.15, 0.3, n), np.full(n, 0.035)],
+            "target_pos": np.c_[rng.uniform(-0.2, 0.2, (n, 2)),
+                                rng.uniform(0.15, 0.35, n)]}
+
+
+def phase_relocate_card_vs_cpu():
+    """Float64: the 20 first Adroit grasp states through qacc_smooth on the
+    card and on the CPU, and the card against MuJoCo's golden qacc; one
+    control step from 8 golden states, card against CPU."""
+    g = np.load(os.path.join(HERE, "tests", "golden", "contact_adroit.npz"))
+    N, B = 20, 8
+    t_start = time.time()
+    acc, steps = {}, {}
+    sc = _relocate_scenery(B, 30)
+    act = np.random.RandomState(31).uniform(-1.2, 1.2, (B, 30))
+    for dev in ("cuda", "cpu"):
+        env = AdroitRelocateEnv(dtype=torch.float64, device=dev)
+        kw = dict(dtype=torch.float64, device=dev)
+
+        def run():
+            a = qacc_smooth(env.model, State(
+                qpos=torch.tensor(g["qpos"][:N], **kw),
+                qvel=torch.tensor(g["qvel"][:N], **kw)),
+                torch.tensor(g["ctrl"][:N], **kw))
+            s = env.state_from_qpos_qvel(g["qpos"][:B], g["qvel"][:B], sc)
+            return a, env.step(s, torch.tensor(act, **kw))
+        (acc[dev], steps[dev]), counts, _ = run_counted(run)
+        if counts != NO_LAUNCHES:
+            raise AssertionError(f"relocate card vs CPU launched {counts}")
+        if dev == "cuda":
+            s0 = env.state_from_qpos_qvel(g["qpos"][:B], g["qvel"][:B], sc)
+            launches, busy, _ = profiled_window(
+                lambda: env.step(s0, torch.tensor(act, **kw)), 1)
+    a_gpu, a_cpu = acc["cuda"].cpu().numpy(), acc["cpu"].numpy()
+    rel = np.abs(a_gpu - a_cpu).max(1) / np.maximum(
+        np.abs(a_cpu).max(1), 1.0)
+    if not rel.max() < M9B_TOL:
+        raise AssertionError(f"relocate qacc card vs CPU {rel.max()}")
+    mj = g["qacc"][:N]
+    errs = np.abs(a_gpu - mj).max(1) / np.maximum(np.abs(mj).max(1), 1.0)
+    if not np.median(errs) < 0.05:
+        raise AssertionError(f"relocate qacc vs MuJoCo median "
+                             f"{np.median(errs)}")
+    step_err = {}
+    gs, cs = steps["cuda"], steps["cpu"]
+    for k, a, b in (("obs", gs.obs, cs.obs), ("qpos", gs.physics.qpos,
+                                             cs.physics.qpos),
+                    ("qvel", gs.physics.qvel, cs.physics.qvel),
+                    ("reward", gs.reward, cs.reward)):
+        scale = max(float(b.abs().max()), 1.0) if k == "qvel" else 1.0
+        torch.testing.assert_close(a.cpu(), b, rtol=M9B_TOL,
+                                   atol=M9B_TOL * scale,
+                                   msg=lambda m: f"relocate {k}: {m}")
+        step_err[k] = (a.cpu() - b).abs().max().item()
+    emit({"phase": "relocate_card_vs_cpu", "dtype": "float64",
+          "qacc_states": N, "qacc_card_vs_cpu_max_rel": float(rel.max()),
+          "qacc_vs_mujoco_median_rel": float(np.median(errs)),
+          "qacc_vs_mujoco_max_rel": float(errs.max()), "step_B": B,
+          "step_max_abs_err": step_err, "rtol_atol": M9B_TOL,
+          "device_launches_per_step": launches, "device_busy_share": busy,
+          "seconds": time.time() - t_start})
+    return NO_LAUNCHES
+
+
+def check_model_relocate(env):
+    m = env.model
+    if (m.solver, m.newton_iters, m.noslip_iters, m.nv, m.nu,
+            solver.n_constraint_rows(m)) != (1, 25, 20, 36, 30, 709) \
+            or env._planar is not None:
+        raise AssertionError(f"relocate model: solver {m.solver}, newton "
+                             f"{m.newton_iters}, noslip {m.noslip_iters}")
+
+
+def phase_rollout_relocate():
+    env = AdroitRelocateEnv()
+    check_model_relocate(env)
+    batch, rec = general_rollout("rollout_relocate", env, (64, 64),
+                                 RELOCATE_HORIZON, 1)
+    rec.update(horizon_cut_from=env.horizon,
+               mean_return=batch["rewards"].sum(1).mean().item(),
+               constraint_rows=solver.n_constraint_rows(env.model))
+    emit(rec)
+    return rec["kernel_launches"]
+
+
+def phase_dapg_relocate():
+    """examples/torch_dapg_relocate.py at the example's widths: 2 expert
+    demos made on the card, 2 BC epochs, 1 DAPG iteration of 50 paths, all
+    at DAPG_HORIZON; no evaluation episodes."""
+    example = example_module("torch_dapg_relocate")
+    torch.cuda.reset_peak_memory_stats()
+    argv = ["--make_demos", "2", "--keep_all_demos", "--horizon",
+            str(DAPG_HORIZON), "--bc_epochs", "2", "--dapg_iters", "1",
+            "--ntraj", "50", "--eval_episodes", "0"]
+    with contextlib.redirect_stdout(sys.stderr):
+        out, counts, seconds = run_counted(lambda: example.main(argv))
+    if counts != NO_LAUNCHES:
+        raise AssertionError(f"dapg_relocate: launched {counts}")
+    dapg = out["dapg"]
+    check_model_relocate(dapg.env.env)
+    log = dapg.logger.log
+    for k, vals in log.items():
+        if len(vals) != 1 or not np.all(np.isfinite(vals)):
+            raise AssertionError(f"dapg_relocate: logged {k} not finite: "
+                                 f"{vals}")
+    kl_cap = dapg.kl_guard * dapg.n_step_size / 2
+    if not log["kl_dist"][0] <= kl_cap * (1 + 1e-6):
+        raise AssertionError(f"dapg_relocate: kl_dist {log['kl_dist']}")
+    if len(out["demo_paths"]) != 2 \
+            or dapg._demo_obs.shape[0] != 2 * DAPG_HORIZON \
+            or log["num_samples"] != [50 * DAPG_HORIZON] \
+            or not np.isfinite(out["policy"].get_param_values()).all():
+        raise AssertionError("dapg_relocate: wrong counts or parameters")
+    if dapg.device.type != "cuda":
+        raise AssertionError("dapg_relocate: not on the card")
+    fenv, policy = dapg.env.env, out["policy"]
+    gen = make_generator(9, fenv.device)
+    launches, busy, window_ms = profiled_window(
+        lambda: rollout_batch(fenv, policy.config, policy.params,
+                              policy.transforms, gen, 50, horizon=1), 1)
+    emit({"phase": "dapg_relocate", "seconds": seconds,
+          "kernel_launches": counts, "horizon": DAPG_HORIZON,
+          "horizon_cut_from": AdroitRelocateEnv.horizon, "num_demos": 2,
+          "bc_epochs": 2, "dapg_iterations": 1, "num_traj": 50,
+          "demo_return": out["demo_return"],
+          "bc_loss_end": out["bc"].logger.log["loss_after"][-1]
+          if "loss_after" in out["bc"].logger.log else None,
+          "time_sampling": log["time_sampling"], "time_npg": log["time_npg"],
+          "time_VF": log["time_VF"], "kl_dist": log["kl_dist"],
+          "stoc_pol_mean": log["stoc_pol_mean"],
+          "success_rate": log.get("success_rate"),
+          "ms_per_control_step": [t / DAPG_HORIZON * 1e3
+                                  for t in log["time_sampling"]],
+          "device_launches_per_step": launches, "window_ms": window_ms,
+          "device_busy_share": busy,
+          "peak_device_memory_bytes": torch.cuda.max_memory_allocated()})
+    return counts
 
 
 def main():
@@ -1984,6 +2294,20 @@ def main():
             kernel["launches_by_path"][phase] = counts[SMOOTH]
             contact["launches_by_path"][phase] = counts[CONTACT]
         emit({"phase": "m9a", "phase_seconds": phase_seconds,
+              "seconds": sum(phase_seconds.values())})
+        # M9b: the rest of the general engine and the Adroit hand
+        phase_seconds = {}
+        for phase, fn in (
+                ("m9b_card_vs_cpu", phase_m9b_card_vs_cpu),
+                ("relocate_card_vs_cpu", phase_relocate_card_vs_cpu),
+                ("rollout_relocate", phase_rollout_relocate),
+                ("dapg_relocate", phase_dapg_relocate)):
+            t0 = time.time()
+            counts = fn()
+            phase_seconds[phase] = time.time() - t0
+            kernel["launches_by_path"][phase] = counts[SMOOTH]
+            contact["launches_by_path"][phase] = counts[CONTACT]
+        emit({"phase": "m9b", "phase_seconds": phase_seconds,
               "seconds": sum(phase_seconds.values())})
     except Exception:
         traceback.print_exc()

@@ -1,12 +1,13 @@
 """Environment registry (counterpart of ``mjrl_tpu/envs/__init__.py``).
 
 ``make(env_id)`` returns a functional env; ``GymEnv(env_id)`` wraps it with
-the stateful host-side API.  Ported so far: the point mass, the swimmer,
-the 7-DoF reacher, peg insertion, the planar gym locomotion suite (Hopper,
-Walker2d, HalfCheetah), InvertedPendulum, Ant and Humanoid.  The Adroit
-ids are registered as in the JAX package and raise, naming ROADMAP.md M9b.
+the stateful host-side API.  Ported: the point mass, the swimmer, the
+7-DoF reacher, peg insertion, the planar gym locomotion suite (Hopper,
+Walker2d, HalfCheetah), InvertedPendulum, Ant, Humanoid and the Adroit hand
+relocate task.
 """
 
+from mjrl_tpu_torch.envs.adroit import AdroitRelocateEnv
 from mjrl_tpu_torch.envs.base import EnvSpec, EnvState, MujocoLikeEnv
 from mjrl_tpu_torch.envs.gym_suite import (AntEnv, HalfCheetahEnv,
                                            HopperEnv, HumanoidEnv,
@@ -53,15 +54,7 @@ for _id in ("Ant-v3", "Ant-v4"):
 for _id in ("Humanoid-v3", "Humanoid-v4"):
     register(_id, HumanoidEnv)
 
-
-def _make_relocate(**kwargs):
-    raise NotImplementedError(
-        "the Adroit hand (relocate) needs the rest of the general engine: "
-        "explicit contact pairs, mesh geoms, affine servos, noslip and the "
-        "primal Newton solver (ROADMAP.md M9b)")
-
-
-register("relocate-v0", _make_relocate)
-register("AdroitHandRelocate-v1", _make_relocate)
+for _id in ("relocate-v0", "AdroitHandRelocate-v1"):
+    register(_id, AdroitRelocateEnv)
 
 from mjrl_tpu_torch.envs.gym_env import GymEnv  # noqa: E402  (needs _REGISTRY)

@@ -29,7 +29,7 @@ from mjrl_tpu_torch.ops.cuda_planar import cuda_step_n_batched
 from mjrl_tpu_torch.physics.kinematics import body_frames, site_positions
 from mjrl_tpu_torch.physics.model import Model, State
 from mjrl_tpu_torch.physics.planar import extract_planar
-from mjrl_tpu_torch.physics.step import check_model, step_n
+from mjrl_tpu_torch.physics.step import step_n
 
 # MuJoCo's mjMAXVAL: any |qpos|/|qvel| beyond this (or non-finite) triggers
 # a state reset instead of propagating garbage.
@@ -99,8 +99,6 @@ class MujocoLikeEnv:
         self._planar = extract_planar(
             self.model, np.float32 if dtype == torch.float32
             else np.float64) if static_model else None
-        if self._planar is None:
-            check_model(self.model)
 
     # -- model patching ------------------------------------------------
     def _site_pos(self, scenery):

@@ -13,8 +13,11 @@ actuation, in world-origin spatial coordinates (counterpart of
   springs, no damping, no fluid) are left out: they add exact zeros.
 
 Fixed tendons have a constant Jacobian ``ten_J``: their passive
-spring/damper forces and their penalty length limits map back through it.
-Equality constraints wait for ROADMAP.md M9b.
+spring/damper forces, their penalty length limits and tendon
+transmissions map back through it.  Equality constraints (joint coupling,
+connect, weld) give residuals and Jacobian rows (``equality_terms``) to
+the implicit solver's rows and to the penalty path's reference
+acceleration (``equality_qacc``).
 """
 
 import numpy as np
@@ -23,8 +26,9 @@ import torch
 from mjrl_tpu_torch.physics import math as pm
 from mjrl_tpu_torch.physics.kinematics import (Data, ancestor_mask,
                                                model_tables)
-from mjrl_tpu_torch.physics.model import (BALL, EULER, FREE, HINGE, JNT_NV,
-                                          SLIDE, Model)
+from mjrl_tpu_torch.physics.model import (BALL, EQ_CONNECT, EQ_JOINT,
+                                          EQ_WELD, EULER, FREE, HINGE,
+                                          JNT_NV, SLIDE, Model)
 
 # saturation width for the penalty limit response (rad or m)
 LIMIT_WIDTH = 0.02
@@ -72,12 +76,48 @@ def _tables(model, ref):
         t.scalar_joints = all(x in (HINGE, SLIDE) for x in types)
         t.hinge = torch.tensor([x == HINGE for x in types],
                                device=ref.device).unsqueeze(-1)
-        t.act_dof = torch.tensor(
-            [model.jnt_dofadr[j] for j in model.actuator_joint],
-            dtype=torch.long, device=ref.device)
         t.all_ctrl_limited = bool(np.all(model.ctrllimited > 0))
         t.ctrl_limited = t.ctrllimited > 0
+        if model.actuator_simple:
+            t.act_dof = torch.tensor(
+                [model.jnt_dofadr[j] for j in model.actuator_joint],
+                dtype=torch.long, device=ref.device)
+        else:
+            moment, lengths, balls = _actuator_moments(model)
+            t.act_moment = torch.tensor(moment, dtype=ref.dtype,
+                                        device=ref.device)
+            t.act_len_moment = torch.tensor(lengths, dtype=ref.dtype,
+                                            device=ref.device)
+            t.act_balls = balls
     return t
+
+
+def _actuator_moments(model: Model):
+    """Constant transmission tables of the affine actuators -> (moment
+    (nu, nv): force f_i acts as f_i * moment[i], whose product with qvel
+    is the actuator velocity; length (nu, nv): its product with the
+    scalar-dof qpos is the length of joint and tendon transmissions; balls:
+    [(i, qposadr, dofadr)] of actuators on ball joints, whose length is
+    gear . rotvec(quaternion); a free joint's actuator has no length)."""
+    moment = np.zeros((model.nu, model.nv))
+    lengths = np.zeros((model.nu, model.nv))
+    balls = []
+    for i, j in enumerate(model.actuator_joint):
+        tid = model.actuator_tendon[i]
+        if tid >= 0:
+            moment[i] = model.gear[i] * model.ten_J[tid]
+            lengths[i] = moment[i]
+            continue
+        da, jt = model.jnt_dofadr[j], model.jnt_type[j]
+        if jt == BALL:
+            moment[i, da:da + 3] = model.actuator_gearv[i, :3]
+            balls.append((i, model.jnt_qposadr[j], da))
+        elif jt == FREE:
+            moment[i, da:da + 6] = model.actuator_gearv[i]
+        else:
+            moment[i, da] = model.gear[i]
+            lengths[i] = moment[i]
+    return moment, lengths, balls
 
 
 # ---------------------------------------------------------------------------
@@ -351,6 +391,118 @@ def ball_limit_qacc(model: Model, qpos, qvel):
     return qacc
 
 
+def equality_terms(model: Model, data: Data, cdof, qpos):
+    """Residuals and Jacobians of the equality constraints -> a list of
+    (i, jrows (B, k, nv), res (B, k), imppos (B,), iw), one entry per
+    constraint: k = 1 for a joint coupling, 3 for a connect, 6 for a weld.
+    ``imppos`` is the impedance position (|res|, or ||res|| for connect and
+    weld), ``iw`` the diagApprox inverse weight (a scalar, or (6,) for a
+    weld).  Joint: res = (q1 - q1_0) - poly(q2 - q2_0), the quartic
+    eq_data[:5]; connect: res = world(anchor on body1) - world(anchor on
+    body2); weld: the connect rows, then ts * vec(q2^-1 q1 relq)."""
+    t = _tables(model, qpos)
+    out = []
+    dtype, dev = qpos.dtype, qpos.device
+    eye = torch.eye(model.nv, dtype=dtype, device=dev)
+    for i in range(model.neq):
+        kind = model.eq_kind[i]
+        if kind == EQ_JOINT:
+            j1, j2 = model.eq_obj1[i], model.eq_obj2[i]
+            d1, qa1 = model.jnt_dofadr[j1], model.jnt_qposadr[j1]
+            c = t.eq_data[i, :5]
+            q1 = qpos[:, qa1] - t.qpos0[qa1]
+            if j2 >= 0:
+                d2, qa2 = model.jnt_dofadr[j2], model.jnt_qposadr[j2]
+                dq = qpos[:, qa2] - t.qpos0[qa2]
+                poly = c[0] + dq * (c[1] + dq * (c[2] + dq * (c[3]
+                                                             + dq * c[4])))
+                dpoly = c[1] + dq * (2 * c[2] + dq * (3 * c[3]
+                                                      + dq * 4 * c[4]))
+                res = q1 - poly
+                jrow = eye[d1] - dpoly.unsqueeze(-1) * eye[d2]
+                iw = t.dof_invweight0[d1] + t.dof_invweight0[d2]
+            else:
+                res = q1 - c[0]
+                jrow = eye[d1].expand(qpos.shape[0], -1)
+                iw = t.dof_invweight0[d1]
+            out.append((i, jrow.unsqueeze(1), res.unsqueeze(-1),
+                        torch.abs(res), iw))
+        elif kind == EQ_CONNECT:
+            b1, b2 = model.eq_obj1[i], model.eq_obj2[i]
+            p1 = data.xpos[:, b1] + pm.mat_vec(data.xmat[:, b1],
+                                               t.eq_data[i, :3])
+            p2 = data.xpos[:, b2] + pm.mat_vec(data.xmat[:, b2],
+                                               t.eq_data[i, 3:6])
+            res = p1 - p2
+            out.append((i, _point_diff_rows(t, cdof, b1, b2, p1, p2), res,
+                        torch.sqrt(torch.sum(res * res, -1) + 1e-18),
+                        t.body_invweight0[b1, 0] + t.body_invweight0[b2, 0]))
+        elif kind == EQ_WELD:
+            b1, b2 = model.eq_obj1[i], model.eq_obj2[i]
+            relq, ts = t.eq_data[i, 6:10], t.eq_data[i, 10]
+            p1 = data.xpos[:, b1] + pm.mat_vec(data.xmat[:, b1],
+                                               t.eq_data[i, 3:6])
+            p2 = data.xpos[:, b2] + pm.mat_vec(data.xmat[:, b2],
+                                               t.eq_data[i, :3])
+            jpos = _point_diff_rows(t, cdof, b1, b2, p1, p2)
+            q1 = pm.mat_to_quat(data.xmat[:, b1])
+            q2i = pm.quat_inv(pm.mat_to_quat(data.xmat[:, b2]))
+            res_rot = ts * pm.quat_mul(pm.quat_mul(q2i, q1), relq)[:, 1:]
+            # d res_rot / d phi1 for an incremental world rotation (1,
+            # phi1 / 2) o q1 of body1; body2's (1, phi2 / 2) o q2 enters
+            # through q2^-1 with the opposite sign, so A2 = -A1
+            half = 0.5 * torch.eye(3, dtype=dtype, device=dev)
+            dq = torch.cat([torch.zeros((3, 1), dtype=dtype, device=dev),
+                            half], dim=-1)                      # (3, 4)
+            a1 = ts * pm.quat_mul(pm.quat_mul(pm.quat_mul(
+                q2i.unsqueeze(1), dq), q1.unsqueeze(1)), relq)[..., 1:]
+            # a1 (B, 3 (phi), 3 (res)); rows over the angular cdof of the
+            # dofs moving body1 and not body2, minus the converse
+            ang = cdof[..., :3] * (t.mask[b1] - t.mask[b2]).unsqueeze(-1)
+            jrot = torch.einsum("Bkr,Bdk->Brd", a1, ang)
+            res = torch.cat([p1 - p2, res_rot], dim=-1)
+            iw_t = t.body_invweight0[b1, 0] + t.body_invweight0[b2, 0]
+            iw_r = t.body_invweight0[b1, 1] + t.body_invweight0[b2, 1]
+            out.append((i, torch.cat([jpos, jrot], dim=1), res,
+                        torch.sqrt(torch.sum(res * res, -1) + 1e-18),
+                        torch.stack([iw_t, iw_t, iw_t, iw_r, iw_r, iw_r])))
+        else:
+            raise NotImplementedError(f"equality kind {kind}")
+    return out
+
+
+def _point_diff_rows(t, cdof, b1, b2, p1, p2):
+    """(B, 3, nv) Jacobian of the world difference of point p1 on body b1
+    and point p2 on body b2 (connect and weld)."""
+    ang, lin = cdof[..., :3], cdof[..., 3:]
+    v1 = lin + pm.cross(ang, p1.unsqueeze(1).expand_as(ang))
+    v2 = lin + pm.cross(ang, p2.unsqueeze(1).expand_as(ang))
+    return (t.mask[b1].unsqueeze(-1) * v1
+            - t.mask[b2].unsqueeze(-1) * v2).transpose(-1, -2)
+
+
+def equality_qacc(model: Model, data: Data, cdof, qpos, qvel):
+    """Penalty-path reference acceleration of the equality constraints: a
+    critically damped bilateral response from eq_solref, the position
+    term saturated 10 x wider than the limits' (the implicit solver holds
+    them as constraint rows)."""
+    t = _tables(model, qvel)
+    qacc = torch.zeros_like(qvel)
+    floor = (4.0 if model.integrator == EULER else 2.0) * t.timestep
+    width = 10.0 * LIMIT_WIDTH
+    for i, jrows, res, _, _ in equality_terms(model, data, cdof, qpos):
+        timeconst = torch.maximum(t.eq_solref[i, 0], floor)
+        dampratio = t.eq_solref[i, 1]
+        k = 1.0 / torch.clamp(timeconst * timeconst * dampratio * dampratio,
+                              min=1e-12)
+        b = 2.0 / torch.clamp(timeconst, min=1e-12)
+        jv = torch.matmul(jrows, qvel.unsqueeze(-1)).squeeze(-1)
+        aref = (-k * torch.clamp(res, -width, width) - b * jv) \
+            * t.eq_active[i]
+        qacc = qacc + torch.matmul(aref.unsqueeze(-2), jrows).squeeze(-2)
+    return qacc
+
+
 def fluid_force(model: Model, data: Data, cvel):
     """MuJoCo's 'equivalent inertia box' fluid model (viscosity +
     density), per body in the inertial frame, mapped back to world-origin
@@ -400,9 +552,16 @@ def has_fluid(model: Model):
 # ---------------------------------------------------------------------------
 
 def actuator_force(model: Model, ctrl, qpos=None, qvel=None):
-    """qfrc_actuator (B, nv) of plain motors on scalar joints, each
-    control clipped to its ctrlrange where ctrllimited (servos, vector
-    gears and tendon transmissions are refused by the ModelBuilder)."""
+    """qfrc_actuator (B, nv) under the affine actuator model f = gain *
+    ctrl + b0 + b1 length + b2 velocity, each control clipped to its
+    ctrlrange where ctrllimited, applied through its transmission.
+
+    Plain motors on scalar joints take one scatter.  Otherwise the
+    transmissions are constant moment rows (a scalar joint: gear at its
+    dof; a tendon: gear x its ten_J row; ball and free joints: the vector
+    gear at their dofs), so velocities and forces are one product each;
+    a ball joint's length is gear . rotvec(quaternion), a free joint has
+    none.  ``qpos``/``qvel`` None count as zero length/velocity."""
     t = _tables(model, ctrl)
     qfrc = ctrl.new_zeros((ctrl.shape[0], model.nv))
     if model.nu == 0:
@@ -410,4 +569,17 @@ def actuator_force(model: Model, ctrl, qpos=None, qvel=None):
     c = torch.clamp(ctrl, t.ctrlrange[:, 0], t.ctrlrange[:, 1])
     if not t.all_ctrl_limited:
         c = torch.where(t.ctrl_limited, c, ctrl)
-    return qfrc.index_add(1, t.act_dof, t.gear * c)
+    if model.actuator_simple:
+        return qfrc.index_add(1, t.act_dof, t.gear * c)
+    f = t.actuator_gain * c + t.actuator_bias[:, 0]
+    if qpos is not None:
+        length = _dof_q(model, qpos) @ t.act_len_moment.T
+        if t.act_balls:
+            length = length.clone()
+            for i, qa, da in t.act_balls:
+                rv = pm.quat_to_rotvec(qpos[:, qa:qa + 4])
+                length[:, i] = rv @ t.actuator_gearv[i, :3]
+        f = f + t.actuator_bias[:, 1] * length
+    if qvel is not None:
+        f = f + t.actuator_bias[:, 2] * (qvel @ t.act_moment.T)
+    return f @ t.act_moment

@@ -19,11 +19,9 @@ locomotion models:
   (gainprm/biasprm); joint or fixed-tendon transmission, ctrlrange
 - fixed tendons, <contact> pairs/excludes and <equality> constraints
 
-The parser hands every element to the port's ``ModelBuilder``.  What it
-cannot build yet — servo actuators, vector gears and motors on free/ball
-joints, tendon transmissions, explicit contact pairs and excludes,
-equalities, mesh geoms — raises ``NotImplementedError``, naming the item
-(ROADMAP.md M9b).
+The parser hands every element to the port's ``ModelBuilder``.  Mesh
+geoms are read as visual geometry only: a collidable mesh raises
+``NotImplementedError``, and a mesh file is never opened.
 """
 
 import math
@@ -217,7 +215,7 @@ def load_mjcf(path=None, xml_string=None):
                 raise NotImplementedError(
                     "collidable mesh geoms are not supported (mesh "
                     "narrowphase); visual-only meshes (contype=0 "
-                    "conaffinity=0) are skipped (ROADMAP.md M9b)")
+                    "conaffinity=0) are skipped")
             mesh_bodies.add(body_id)
             return
         kwargs = dict(
@@ -337,8 +335,7 @@ def load_mjcf(path=None, xml_string=None):
             raise NotImplementedError(
                 "a body with mesh geoms needs an explicit <inertial> — "
                 "mesh mass properties are not computed, so dropping the "
-                "visual mesh would otherwise change the body's mass "
-                "(ROADMAP.md M9b)")
+                "visual mesh would otherwise change the body's mass")
 
     for tendons in root.findall("tendon"):
         for t in tendons:

@@ -9,15 +9,17 @@ per-body mass, CoM and principal inertia from geoms like MuJoCo's
 Ported: slide, hinge, ball (3 dofs / 4 qpos: a local wxyz quaternion,
 angular velocity in the post-joint body frame) and free joints (6 dofs /
 7 qpos: world position + wxyz quaternion, on a direct child of the world),
-ball rotation limits, quaternion springs, plain motors on scalar joints,
-fixed tendons (passive spring/damper and length limits), geoms (inertia
-and the dynamic contact pairs with their condim, friction, solref/solimp),
-the implicit solver's ``contact_topk`` active-set cap and its
-``row_freeze_step`` option, Euler and RK4, both friction cones.  Servo
-actuators, vector gears (motors on ball/free joints), tendon
-transmissions, equalities, explicit contact pairs and excludes and the
-primal Newton solver belong to ROADMAP.md M9b and raise
-``NotImplementedError``.
+ball rotation limits, quaternion springs, the affine actuator family
+(motors, position/velocity servos, general gain/bias) on joint
+transmissions with scalar or vector gears (ball: 3, free: 6) and on
+fixed-tendon transmissions, fixed tendons (passive spring/damper and
+length limits), equality constraints (joint coupling, connect, weld),
+geoms (inertia and the contact pairs with their condim, friction,
+solref/solimp: the dynamic contype/conaffinity pairs minus excluded body
+pairs, plus explicit ``<contact><pair>``s with their own condim), the
+implicit solver's ``contact_topk`` active-set cap, its
+``row_freeze_step`` option and its primal Newton iterations, Euler and
+RK4, both friction cones and the noslip post-pass.
 """
 
 from dataclasses import dataclass, field, replace
@@ -97,6 +99,16 @@ class Model:
     # across the stages and the whole control step (quasi-static contact
     # models); False rebuilds them at every stage, as MuJoCo does
     row_freeze_step: bool = False
+    # primal-Newton constraint solver iterations (0 = the dual APGD);
+    # pyramidal cones only
+    newton_iters: int = 0
+    # per-actuator tendon transmission id (-1 = joint transmission)
+    actuator_tendon: Tuple[int, ...] = ()
+    # equality constraints: kind (EQ_*), obj1/obj2 (joint or body ids,
+    # obj2 -1 = none / 0 = the world for body kinds)
+    eq_kind: Tuple[int, ...] = ()
+    eq_obj1: Tuple[int, ...] = ()
+    eq_obj2: Tuple[int, ...] = ()
     dof_qpos_idx: Tuple[int, ...] = ()
     # ball/free joints with nonzero stiffness (quaternion springs)
     jnt_spring_quat: Tuple[int, ...] = ()
@@ -132,6 +144,18 @@ class Model:
     gear: Any = None              # (nu,)
     ctrlrange: Any = None         # (nu, 2)
     ctrllimited: Any = None       # (nu,)
+    # affine actuators: f = gain * ctrl + b0 + b1 length + b2 velocity
+    actuator_gain: Any = None     # (nu,)
+    actuator_bias: Any = None     # (nu, 3)
+    actuator_gearv: Any = None    # (nu, 6) vector gear (ball: :3, free: :6)
+    # equality data in MuJoCo's layout per kind: joint [0:5] quartic
+    # polycoef; connect [0:3] anchor on body1, [3:6] anchor on body2; weld
+    # [0:3] anchor on body2, [3:6] anchor on body1, [6:10] relpose quat,
+    # [10] torquescale
+    eq_data: Any = None           # (neq, 11)
+    eq_solref: Any = None         # (neq, 2)
+    eq_solimp: Any = None         # (neq, 5)
+    eq_active: Any = None         # (neq,)
     geom_pos: Any = None          # (ngeom, 3) in body frame
     geom_quat: Any = None         # (ngeom, 4)
     geom_size: Any = None         # (ngeom, 3)
@@ -230,6 +254,54 @@ def _geom_mass_inertia(gtype, size, density, mass):
     raise ValueError(f"unsupported geom type {gtype}")
 
 
+def _frames0(model):
+    """World body frames at qpos0 (xpos (nbody, 3), xmat (nbody, 3, 3)):
+    every joint sits at its reference there, so the frames compose from
+    ``body_pos``/``body_quat`` alone."""
+    xpos = np.zeros((model.nbody, 3))
+    xmat = np.tile(np.eye(3), (model.nbody, 1, 1))
+    for b in range(1, model.nbody):
+        pb = model.body_parent[b]
+        xpos[b] = xpos[pb] + xmat[pb] @ model.body_pos[b]
+        q = model.body_quat[b] / np.linalg.norm(model.body_quat[b])
+        xmat[b] = xmat[pb] @ _np_quat_to_mat(q)
+    return xpos, xmat
+
+
+def _np_quat_mul(a, b):
+    w1, x1, y1, z1 = a
+    w2, x2, y2, z2 = b
+    return np.array([w1 * w2 - x1 * x2 - y1 * y2 - z1 * z2,
+                     w1 * x2 + x1 * w2 + y1 * z2 - z1 * y2,
+                     w1 * y2 - x1 * z2 + y1 * w2 + z1 * x2,
+                     w1 * z2 + x1 * y2 - y1 * x2 + z1 * w2])
+
+
+def _np_mat_to_quat(m):
+    """Rotation matrix -> wxyz quaternion (largest-component branch)."""
+    t = np.trace(m)
+    cand = np.array([1.0 + t,
+                     1.0 + m[0, 0] - m[1, 1] - m[2, 2],
+                     1.0 - m[0, 0] + m[1, 1] - m[2, 2],
+                     1.0 - m[0, 0] - m[1, 1] + m[2, 2]])
+    k = int(np.argmax(cand))
+    s = 2.0 * np.sqrt(max(cand[k], 1e-12))
+    if k == 0:
+        q = [0.25 * s, (m[2, 1] - m[1, 2]) / s,
+             (m[0, 2] - m[2, 0]) / s, (m[1, 0] - m[0, 1]) / s]
+    elif k == 1:
+        q = [(m[2, 1] - m[1, 2]) / s, 0.25 * s,
+             (m[0, 1] + m[1, 0]) / s, (m[0, 2] + m[2, 0]) / s]
+    elif k == 2:
+        q = [(m[0, 2] - m[2, 0]) / s, (m[0, 1] + m[1, 0]) / s,
+             0.25 * s, (m[1, 2] + m[2, 1]) / s]
+    else:
+        q = [(m[1, 0] - m[0, 1]) / s, (m[0, 2] + m[2, 0]) / s,
+             (m[1, 2] + m[2, 1]) / s, 0.25 * s]
+    q = np.asarray(q)
+    return q / np.linalg.norm(q)
+
+
 def _invweights(model):
     """MuJoCo mj_setConst inverse-weight tables at qpos0:
     ``dof_invweight0 = diag(M0^-1)``, ``body_invweight0[b] =
@@ -247,13 +319,7 @@ def _invweights(model):
     (slide; the free joint's first three), as in
     ``dynamics.compute_cdof``."""
     nb, nv = model.nbody, model.nv
-    xpos = np.zeros((nb, 3))
-    xmat = np.tile(np.eye(3), (nb, 1, 1))
-    for b in range(1, nb):
-        pb = model.body_parent[b]
-        xpos[b] = xpos[pb] + xmat[pb] @ model.body_pos[b]
-        q = model.body_quat[b] / np.linalg.norm(model.body_quat[b])
-        xmat[b] = xmat[pb] @ _np_quat_to_mat(q)
+    xpos, xmat = _frames0(model)
     xipos = np.stack([xpos[b] + xmat[b] @ model.body_ipos[b]
                       for b in range(nb)])
     # per-dof world axis / anchor, whether it rotates, and its body
@@ -316,8 +382,11 @@ def _invweights(model):
 
 
 def _actuators_simple(actuators, joints):
-    """True when every actuator is a plain motor on a scalar joint."""
-    return all(joints[a["joint"]]["type"] not in (FREE, BALL)
+    """True when every actuator is a plain motor on a scalar joint (the
+    one-scatter path of ``dynamics.actuator_force``)."""
+    return all(a["tendon"] < 0
+               and joints[a["joint"]]["type"] not in (FREE, BALL)
+               and not np.any(a["bias"]) and a["gain"] == 1.0
                for a in actuators)
 
 
@@ -330,15 +399,6 @@ def _solver_id(solver):
             f"unknown solver {solver!r}: choose 'penalty' (explicit, fast,"
             " approximate) or 'newton' (implicit, MuJoCo-grade limits/"
             "contacts; aliases 'pgs', 'implicit')") from None
-
-
-def _general_engine_only(item):
-    """A ModelBuilder method that refuses ``item``."""
-    def raiser(self, *args, **kwargs):
-        raise NotImplementedError(
-            f"{item} need the rest of the general engine and solver "
-            "(ROADMAP.md M9b)")
-    return raiser
 
 
 @dataclass
@@ -372,6 +432,11 @@ class ModelBuilder:
         self.sites = []
         self.actuators = []
         self.tendons = []
+        self.equalities = []
+        # explicit <contact><pair> declarations (g1, g2, condim or None)
+        # and <exclude> body pairs (b1, b2)
+        self.explicit_pairs = []
+        self.excluded_body_pairs = []
         self.names = {"body": {"world": 0}, "site": {}, "geom": {},
                       "joint": {}, "tendon": {}}
 
@@ -465,36 +530,6 @@ class ModelBuilder:
             self.names["site"][name] = sid
         return sid
 
-    def add_actuator(self, joint=None, gear=1.0, ctrlrange=(-1.0, 1.0),
-                     ctrllimited=True, gain=1.0, bias=(0.0, 0.0, 0.0),
-                     tendon=None):
-        """Plain motor on a slide/hinge joint (``gear`` a scalar or a
-        vector whose first element counts).  Servo gains/biases, vector
-        gears and motors on ball/free joints, and tendon transmissions
-        belong to ROADMAP.md M9b and raise."""
-        if tendon is not None or joint is None:
-            raise NotImplementedError(
-                "tendon transmissions need the rest of the general engine "
-                "(ROADMAP.md M9b)")
-        if float(gain) != 1.0 or np.any(np.asarray(bias, np.float64) != 0.0):
-            raise NotImplementedError(
-                "position/velocity/general actuators (affine gain/bias) "
-                "need the rest of the general engine (ROADMAP.md M9b)")
-        gear = np.atleast_1d(np.asarray(gear, np.float64))
-        if np.any(gear[1:] != 0.0):
-            raise NotImplementedError(
-                "vector gears need the rest of the general engine "
-                "(ROADMAP.md M9b)")
-        if self.joints[joint]["type"] in (FREE, BALL):
-            raise NotImplementedError(
-                "motors on free/ball joints (vector-gear transmissions) "
-                "need the rest of the general engine (ROADMAP.md M9b)")
-        self.actuators.append(dict(
-            joint=joint, gear=float(gear[0]),
-            ctrlrange=np.asarray(ctrlrange, np.float64),
-            ctrllimited=float(bool(ctrllimited))))
-        return len(self.actuators) - 1
-
     def add_tendon(self, joints, ten_range=None, limited=None,
                    stiffness=0.0, damping=0.0, springlength=None,
                    solref=(0.02, 1.0), solimp=(0.9, 0.95, 0.001, 0.5, 2.0),
@@ -528,10 +563,118 @@ class ModelBuilder:
             self.names["tendon"][name] = tid
         return tid
 
-    add_contact_pair = _general_engine_only("explicit contact pairs")
-    add_contact_exclude = _general_engine_only("contact excludes")
-    add_equality_joint = add_equality_connect = add_equality_weld = \
-        _general_engine_only("equality constraints")
+    def add_contact_pair(self, geom1, geom2, condim=None):
+        """Explicit <contact><pair>: always a collision candidate,
+        whatever the geoms' contype/conaffinity; ``condim`` overrides the
+        geom-max rule (None keeps it)."""
+        if condim is not None and int(condim) not in (1, 3, 4, 6):
+            raise NotImplementedError(
+                f"pair condim {condim} not supported (1 = frictionless, "
+                "3 = tangential, 4 = +torsional, 6 = +rolling friction)")
+        self.explicit_pairs.append((int(geom1), int(geom2),
+                                    None if condim is None else int(condim)))
+
+    def add_contact_exclude(self, body1, body2):
+        """<contact><exclude>: drop every dynamic geom pair between the two
+        bodies (explicit pairs are not excluded, as in MuJoCo)."""
+        self.excluded_body_pairs.append((int(body1), int(body2)))
+
+    def _add_equality(self, kind, obj1, obj2, data, solref, solimp, active):
+        self.equalities.append(dict(
+            kind=kind, obj1=int(obj1), obj2=int(obj2), data=data,
+            solref=np.asarray(solref, np.float64),
+            solimp=np.asarray(solimp, np.float64),
+            active=float(bool(active))))
+        return len(self.equalities) - 1
+
+    def add_equality_joint(self, joint1, joint2=None,
+                           polycoef=(0.0, 1.0, 0.0, 0.0, 0.0),
+                           solref=(0.02, 1.0),
+                           solimp=(0.9, 0.95, 0.001, 0.5, 2.0),
+                           active=True):
+        """Quartic joint coupling (MuJoCo <equality><joint>): (q1 - q1_0)
+        = poly(q2 - q2_0); joint2 None pins joint1 at q1_0 +
+        polycoef[0]."""
+        for jid in (joint1,) + (() if joint2 is None else (joint2,)):
+            if self.joints[jid]["type"] not in (SLIDE, HINGE):
+                raise ValueError("joint equality couples scalar "
+                                 "(slide/hinge) joints only")
+        data = np.zeros(11)
+        data[:5] = np.asarray(polycoef, np.float64)[:5]
+        data[10] = 1.0      # MuJoCo stores the default torquescale
+        return self._add_equality(EQ_JOINT, joint1,
+                                  -1 if joint2 is None else joint2, data,
+                                  solref, solimp, active)
+
+    def add_equality_connect(self, body1, body2, anchor,
+                             solref=(0.02, 1.0),
+                             solimp=(0.9, 0.95, 0.001, 0.5, 2.0),
+                             active=True):
+        """3-dof connect (MuJoCo <equality><connect>): ``anchor`` in
+        body1's frame; the coincident body2-local point is taken at qpos0
+        by ``finalize`` (the compiler's rule).  body2 = 0: the world."""
+        data = np.zeros(11)
+        data[:3] = np.asarray(anchor, np.float64)
+        data[3:6] = np.nan                # resolved at finalize
+        data[10] = 1.0
+        return self._add_equality(EQ_CONNECT, body1, body2, data, solref,
+                                  solimp, active)
+
+    def add_equality_weld(self, body1, body2, anchor=(0, 0, 0),
+                          relpose=None, torquescale=1.0,
+                          solref=(0.02, 1.0),
+                          solimp=(0.9, 0.95, 0.001, 0.5, 2.0),
+                          active=True):
+        """6-dof weld (MuJoCo <equality><weld>): body1's pose locked to
+        body2's.  ``anchor`` in body2's frame; ``relpose`` = (pos 3, quat
+        4) of body1 relative to body2, or None / an all-zero quat to take
+        the relative pose at qpos0 in ``finalize``; ``torquescale`` scales
+        the 3 orientation rows against the 3 position rows."""
+        data = np.zeros(11)
+        data[:3] = np.asarray(anchor, np.float64)
+        if relpose is None:
+            data[3:10] = np.nan           # resolved at finalize
+        else:
+            rp = np.asarray(relpose, np.float64)
+            if rp.shape != (7,):
+                raise ValueError("relpose = (pos 3, quat 4)")
+            data[3:10] = rp
+            if not np.any(rp[3:]):        # the all-zero quat sentinel
+                data[6:10] = np.nan
+        data[10] = float(torquescale)
+        return self._add_equality(EQ_WELD, body1, body2, data, solref,
+                                  solimp, active)
+
+    def add_actuator(self, joint=None, gear=1.0, ctrlrange=(-1.0, 1.0),
+                     ctrllimited=True, gain=1.0, bias=(0.0, 0.0, 0.0),
+                     tendon=None):
+        """Affine actuator (MuJoCo gaintype fixed, biastype affine) on a
+        joint or fixed-tendon transmission: f = gain * ctrl + b0 + b1
+        length + b2 velocity.  ``gear`` is a scalar for slide, hinge and
+        tendon, a vector of 3 for ball and 6 for free joints.  Motor: the
+        defaults; position servo: gain kp, bias (0, -kp, -kv); velocity
+        servo: gain kv, bias (0, 0, -kv)."""
+        if (joint is None) == (tendon is None):
+            raise ValueError("actuator needs exactly one of joint= or "
+                             "tendon=")
+        gear = np.atleast_1d(np.asarray(gear, np.float64))
+        need = 1 if tendon is not None else \
+            {FREE: 6, BALL: 3}.get(self.joints[joint]["type"], 1)
+        if len(gear) == 1 and need > 1:
+            gear = np.concatenate([gear, np.zeros(need - 1)])
+        if len(gear) < need:
+            raise ValueError(f"gear needs {need} elements for this joint "
+                             "type")
+        gearv = np.zeros(6)
+        gearv[:len(gear[:6])] = gear[:6]
+        self.actuators.append(dict(
+            joint=-1 if joint is None else joint,
+            tendon=-1 if tendon is None else tendon,
+            gear=float(gearv[0]), gearv=gearv,
+            gain=float(gain), bias=np.asarray(bias, np.float64),
+            ctrlrange=np.asarray(ctrlrange, np.float64),
+            ctrllimited=float(bool(ctrllimited))))
+        return len(self.actuators) - 1
 
     # ---- compilation ------------------------------------------------------
     def _body_inertial(self, body):
@@ -603,15 +746,21 @@ class ModelBuilder:
         return total_m, com, q, np.maximum(evals, 0.0)
 
     def _contact_pairs(self):
-        """MuJoCo dynamic pair filtering -> (pairs, pair_condims):
-        different bodies, not parent-child, (contype1 & conaffinity2) or
-        (contype2 & conaffinity1); condim = max of geom condims."""
+        """MuJoCo pair filtering -> (pairs, pair_condims).
+
+        Dynamic pairs: different bodies, not parent-child, (contype1 &
+        conaffinity2) or (contype2 & conaffinity1), minus excluded body
+        pairs; condim = max of the geom condims.  Explicit pairs follow,
+        deduplicated against the dynamic set and each other (the last
+        declaration's condim wins; a pair declared twice is kept once, as
+        the JAX package keeps it).  Excludes do not touch them."""
+        excl = {tuple(sorted(p)) for p in self.excluded_body_pairs}
         pairs, condims = [], []
         for i, g1 in enumerate(self.geoms):
             for j in range(i + 1, len(self.geoms)):
                 g2 = self.geoms[j]
                 b1, b2 = g1["body"], g2["body"]
-                if b1 == b2:
+                if b1 == b2 or tuple(sorted((b1, b2))) in excl:
                     continue
                 p1, p2 = self.bodies[b1].parent, self.bodies[b2].parent
                 # exclude parent-child (world-body geoms like floors are
@@ -622,6 +771,17 @@ class ModelBuilder:
                    (g2["contype"] & g1["conaffinity"]):
                     pairs.append((i, j))
                     condims.append(max(g1["condim"], g2["condim"]))
+        index = {p: k for k, p in enumerate(pairs)}
+        for i, j, cd in self.explicit_pairs:
+            key = (i, j) if i < j else (j, i)
+            cd = (max(self.geoms[i]["condim"], self.geoms[j]["condim"])
+                  if cd is None else cd)
+            if key in index:
+                condims[index[key]] = cd
+            else:
+                index[key] = len(pairs)
+                pairs.append(key)
+                condims.append(cd)
         return tuple(pairs), tuple(condims)
 
     def _sort_by_body(self):
@@ -635,6 +795,8 @@ class ModelBuilder:
             if kind == "geom":
                 for b in self.bodies:
                     b.geoms = [remap[g] for g in b.geoms]
+                self.explicit_pairs = [(remap[i], remap[j], cd)
+                                       for i, j, cd in self.explicit_pairs]
 
     def finalize(self, solver="penalty", dtype=np.float64, newton_iters=0,
                  contact_topk=None, row_freeze_step=False):
@@ -648,12 +810,8 @@ class ModelBuilder:
         (see Model); None = 64 when the model emits more than 64 contact
         slots, else no cap.  ``row_freeze_step``: freeze the RK4
         constraint rows for the whole control step (see Model).
-        ``newton_iters > 0`` (the JAX package's primal Newton solver) is
-        not ported and raises."""
-        if newton_iters:
-            raise NotImplementedError(
-                "the primal Newton constraint solver (newton_iters > 0) "
-                "is not ported (ROADMAP.md M9b)")
+        ``newton_iters > 0`` switches the implicit solver to the primal
+        Newton solver with that many iterations (pyramidal cones)."""
         self._sort_by_body()
         nbody = len(self.bodies)
         njnt = len(self.joints)
@@ -744,6 +902,8 @@ class ModelBuilder:
         tn = self.tendons
 
         pairs_, pair_condim_ = self._contact_pairs()
+        eqs = self.equalities
+        neq = len(eqs)
 
         model = Model(
             nbody=nbody, njnt=njnt, nq=nq, nv=nv, nu=nu, ngeom=ngeom,
@@ -796,6 +956,18 @@ class ModelBuilder:
             gear=arr([a["gear"] for a in self.actuators], nu),
             ctrlrange=arr([a["ctrlrange"] for a in self.actuators], nu, 2),
             ctrllimited=arr([a["ctrllimited"] for a in self.actuators], nu),
+            actuator_gain=arr([a["gain"] for a in self.actuators], nu),
+            actuator_bias=arr([a["bias"] for a in self.actuators], nu, 3),
+            actuator_gearv=arr([a["gearv"] for a in self.actuators], nu, 6),
+            actuator_tendon=tuple(a["tendon"] for a in self.actuators),
+            neq=neq,
+            eq_kind=tuple(e["kind"] for e in eqs),
+            eq_obj1=tuple(e["obj1"] for e in eqs),
+            eq_obj2=tuple(e["obj2"] for e in eqs),
+            eq_data=arr([e["data"] for e in eqs], neq, 11),
+            eq_solref=arr([e["solref"] for e in eqs], neq, 2),
+            eq_solimp=arr([e["solimp"] for e in eqs], neq, 5),
+            eq_active=arr([e["active"] for e in eqs], neq),
             geom_pos=arr([g["pos"] for g in self.geoms], ngeom, 3),
             geom_quat=arr([g["quat"] for g in self.geoms], ngeom, 4),
             geom_size=arr([g["size"] for g in self.geoms], ngeom, 3),
@@ -826,8 +998,36 @@ class ModelBuilder:
         return replace(model, dof_invweight0=arr(dof_iw),
                        body_invweight0=arr(body_iw),
                        ten_invweight0=arr(ten_iw, ntendon),
+                       eq_data=arr(_resolve_eq_data(model), neq, 11),
                        contact_topk=int(contact_topk),
-                       row_freeze_step=bool(row_freeze_step))
+                       row_freeze_step=bool(row_freeze_step),
+                       newton_iters=int(newton_iters))
+
+
+def _resolve_eq_data(model):
+    """eq_data with the compiler's qpos0 rules applied where ``finalize``
+    left NaN: a connect's body2-local anchor is the point coincident with
+    body1's anchor; a weld's body1-local anchor is body2's anchor, and its
+    relative quaternion makes vec(q2^-1 q1 relq) vanish."""
+    eq_data = np.array(model.eq_data, np.float64)
+    if not np.isnan(eq_data).any():
+        return eq_data
+    xpos, xmat = _frames0(model)
+    for i, kind in enumerate(model.eq_kind):
+        b1, b2 = model.eq_obj1[i], model.eq_obj2[i]
+        if kind == EQ_CONNECT:
+            p1 = xpos[b1] + xmat[b1] @ eq_data[i, :3]
+            eq_data[i, 3:6] = xmat[b2].T @ (p1 - xpos[b2])
+        elif kind == EQ_WELD:
+            if np.isnan(eq_data[i, 3:6]).any():
+                p2 = xpos[b2] + xmat[b2] @ eq_data[i, :3]
+                eq_data[i, 3:6] = xmat[b1].T @ (p2 - xpos[b1])
+            if np.isnan(eq_data[i, 6:10]).any():
+                q1 = _np_mat_to_quat(xmat[b1])
+                q2 = _np_mat_to_quat(xmat[b2])
+                relq = _np_quat_mul(q1 * np.array([1, -1, -1, -1]), q2)
+                eq_data[i, 6:10] = relq / np.linalg.norm(relq)
+    return eq_data
 
 
 @dataclass

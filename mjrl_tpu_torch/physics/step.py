@@ -10,12 +10,14 @@ Integrators (matching MuJoCo):
 - RK4: classic 4-stage Runge-Kutta on (qpos, qvel), its stage sums in the
   JAX package's left-associated order and (h/6) * sum.
 
-Joint limits, tendon limits and contacts go through the penalty path (the
-reference accelerations ``dynamics.limit_qacc`` / ``tendon_limit_qacc``,
-the forces ``collision.contact_qfrc``) or, with ``solver="pgs"``, through
-the implicit dual (``physics/solver.py``), cold at the first substep of a
+Joint limits, tendon limits, equalities and contacts go through the
+penalty path (the reference accelerations ``dynamics.limit_qacc`` /
+``tendon_limit_qacc`` / ``equality_qacc``, the forces
+``collision.contact_qfrc``) or, with ``solver="pgs"``, through the implicit
+solver (``physics/solver.py``): the dual cold at the first substep of a
 control step (``SWEEPS``) and warm-started at the others and at RK4 stages
-2-4 (``SWEEPS_WARM``).  RK4 rebuilds the constraint rows at every stage,
+2-4 (``SWEEPS_WARM``), or the primal Newton solver where the model sets
+``newton_iters`` (its warm format threads through unchanged).  RK4 rebuilds the constraint rows at every stage,
 as MuJoCo does, unless the model sets ``row_freeze_step``: then the rows
 of the first stage of the first substep hold for the whole control step
 and only their J v is recomputed.
@@ -34,14 +36,7 @@ from mjrl_tpu_torch.physics.kinematics import body_frames, model_tables
 from mjrl_tpu_torch.physics.model import (BALL, FREE, PGS, RK4, HINGE,
                                           SLIDE, Model, State)
 from mjrl_tpu_torch.physics.solver import (SWEEPS, SWEEPS_WARM,
-                                           check_supported,
                                            constrained_qacc)
-
-
-def check_model(model: Model):
-    """Raise NotImplementedError for a model this engine does not step."""
-    if model.solver == PGS:
-        check_supported(model)
 
 
 def _quat_step(quat, w, h):
@@ -109,6 +104,9 @@ def _forces_and_mass(model: Model, state: State, ctrl, body_pos=None):
     if model.ntendon:
         qacc_ref = qacc_ref + dyn.tendon_limit_qacc(model, state.qpos,
                                                     state.qvel)
+    if model.neq:
+        qacc_ref = qacc_ref + dyn.equality_qacc(model, data, cdof,
+                                                state.qpos, state.qvel)
     return m, qfrc, bias, qacc_ref, None
 
 

@@ -43,6 +43,7 @@ from mjrl_tpu_torch.samplers import rollout as trollout
 
 from test_torch_gym_suite import _start_table
 from test_torch_policy import numpy_params, to_jax
+from test_torch_mjcf_m9b import one_torch_thread  # noqa: F401
 
 B, T, HID = 16, 8, (8, 8)
 SCAN_TOL, ROLLOUT_TOL, PROCESS_TOL = 1e-12, 1e-8, 1e-10

@@ -37,6 +37,7 @@ from mjrl_tpu_torch.physics.kinematics import fwd_kinematics
 from mjrl_tpu_torch.physics.mjcf import load_mjcf
 
 from test_manifolds import BASE, SCENES
+from test_torch_mjcf_m9b import one_torch_thread  # noqa: F401
 
 HERE = os.path.dirname(__file__)
 GOLDEN = os.path.join(HERE, "golden")

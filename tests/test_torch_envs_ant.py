@@ -21,6 +21,7 @@ from mjrl_tpu_torch.envs.gym_suite import AntEnv
 from mjrl_tpu_torch.envs.peg_insertion import PegEnv
 
 from test_torch_envs_contact import B, compare_steps, step_both
+from test_torch_mjcf_m9b import one_torch_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("solver", ["newton", "penalty"])

@@ -32,6 +32,7 @@ from mjrl_tpu_torch.envs.peg_insertion import PegEnv
 from mjrl_tpu_torch.physics.kinematics import fwd_kinematics
 
 from test_torch_collision3d import GOLDEN
+from test_torch_mjcf_m9b import one_torch_thread  # noqa: F401
 
 B, TOL = 6, 1e-9
 

@@ -20,6 +20,7 @@ from mjrl_tpu_torch.envs.gym_suite import HumanoidEnv
 
 from test_torch_collision3d import MJCF
 from test_torch_envs_contact import compare_steps, step_both
+from test_torch_mjcf_m9b import one_torch_thread  # noqa: F401
 
 
 def test_humanoid_control_steps_match_jax():

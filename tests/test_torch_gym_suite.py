@@ -32,6 +32,7 @@ from mjrl_tpu_torch.samplers import rollout as trollout
 
 from test_torch_kernel_host import cheetah_explosion_states, contact_states
 from test_torch_policy import numpy_params, to_jax
+from test_torch_mjcf_m9b import one_torch_thread  # noqa: F401
 
 ENVS = {"Hopper-v3": (jsuite.HopperEnv, tsuite.HopperEnv, 11, 3, 4),
         "Walker2d-v3": (jsuite.Walker2dEnv, tsuite.Walker2dEnv, 17, 6, 4),

@@ -143,18 +143,32 @@ _BODY = ('<mujoco><worldbody><body><joint name="j" type="{jt}"/>'
 _MOTOR = '<actuator><motor joint="j"/></actuator>'
 
 
-@pytest.mark.parametrize("jt, extra, match", [
-    ("free", _MOTOR, "free/ball"),
-    ("ball", _MOTOR, "free/ball"),
-    ("hinge", '<actuator><position joint="j" kp="2"/></actuator>',
-     "position/velocity/general"),
+_ACT = ("actuator_gain", "actuator_bias", "actuator_gearv",
+        "actuator_simple", "actuator_joint", "actuator_tendon")
+
+
+@pytest.mark.parametrize("jt, extra, what", [
+    ("free", _MOTOR, _ACT),
+    ("ball", _MOTOR, _ACT),
+    ("hinge", '<actuator><position joint="j" kp="2"/></actuator>', _ACT),
     ("hinge", '<tendon><fixed name="t"><joint joint="j" coef="1"/></fixed>'
-     '</tendon><actuator><motor tendon="t"/></actuator>',
-     "tendon transmissions"),
-    ("hinge", '<equality><joint joint1="j"/></equality>', "equality"),
+     '</tendon><actuator><motor tendon="t"/></actuator>', _ACT),
+    ("hinge", '<equality><joint joint1="j"/></equality>',
+     ("eq_kind", "eq_obj1", "eq_obj2", "eq_data", "eq_solref",
+      "eq_solimp", "eq_active")),
     ("hinge", '<contact><exclude body1="world" body2="world"/></contact>',
-     "contact excludes"),
+     ("contact_pairs", "contact_pair_condim")),
 ], ids=["free", "ball", "servo", "tendon", "equality", "exclude"])
-def test_unbuildable_elements_raise_naming_the_item(jt, extra, match):
-    with pytest.raises(NotImplementedError, match=match):
-        load_mjcf(xml_string=_BODY.format(jt=jt, extra=extra))
+def test_formerly_unbuildable_elements_match_jax(jt, extra, what):
+    """Elements the port refused until the rest of the general engine was
+    ported build as the JAX package builds them."""
+    xml = _BODY.format(jt=jt, extra=extra)
+    jm = jax_load_mjcf(xml_string=xml).finalize(jnp.float64)
+    tm = load_mjcf(xml_string=xml).finalize()
+    for f in what:
+        a, b = getattr(jm, f), getattr(tm, f)
+        if isinstance(b, np.ndarray):
+            np.testing.assert_allclose(b, np.asarray(a), rtol=1e-12,
+                                       atol=1e-12, err_msg=f)
+        else:
+            assert a == b, f

@@ -156,35 +156,84 @@ def test_penalty_solver_has_no_planar_path():
     assert extract_planar(swimmer_model(solver="penalty")) is None
 
 
+def _builders():
+    from mjrl_tpu.physics import model as jmodel
+    return jmodel.ModelBuilder(), tmodel.ModelBuilder()
+
+
+def _fields_match(jb, tb, **kw):
+    jm, tm = jb.finalize(jnp.float64, **kw), tb.finalize(**kw)
+    for f in ("actuator_gain", "actuator_bias", "actuator_gearv", "gear",
+              "eq_data", "eq_solref", "eq_solimp", "eq_active",
+              "dof_invweight0", "body_invweight0"):
+        np.testing.assert_allclose(getattr(tm, f), np.asarray(getattr(jm, f)),
+                                   rtol=1e-9, atol=1e-12, err_msg=f)
+    for f in ("actuator_joint", "actuator_tendon", "actuator_simple",
+              "eq_kind", "eq_obj1", "eq_obj2", "contact_pairs",
+              "contact_pair_condim", "nu", "neq"):
+        assert getattr(tm, f) == getattr(jm, f), f
+    return tm
+
+
 @pytest.mark.parametrize("jnt", ["free", "ball"])
-def test_free_and_ball_joints_not_ported(jnt):
-    """Free and ball joints build (the general engine steps them); what
-    stays unported of them is the motor on such a joint, a vector-gear
-    transmission, which names M9."""
-    b = tmodel.ModelBuilder()
-    body = b.add_body(0)
-    j = b.add_joint(body, jnt)
-    with pytest.raises(NotImplementedError, match="M9"):
-        b.add_actuator(j)
+def test_motor_on_free_and_ball_joints_matches_jax(jnt):
+    """A motor on a free or ball joint (a vector-gear transmission) builds
+    as the JAX package builds it."""
+    tm = _fields_match(*_builders_with(jnt))
+    assert not tm.actuator_simple
+
+
+def _builders_with(jnt):
+    out = []
+    for b in _builders():
+        body = b.add_body(0)
+        b.add_geom(body, "sphere", size=(0.1,))
+        j = b.add_joint(body, jnt)
+        b.add_actuator(j, gear=(1.0, 0.5, 0.25, -0.5, 0.2, 0.1)[
+            :6 if jnt == "free" else 3])
+        out.append(b)
+    return out
+
+
+def _declare(b, method):
+    body = b.add_body(0, pos=(0, 0, 1))
+    j = b.add_joint(body, "hinge", axis=(0, 1, 0))
+    b.add_geom(body, "sphere", size=(0.1,))
+    body2 = b.add_body(0, pos=(0.15, 0, 1))
+    j2 = b.add_joint(body2, "hinge", axis=(0, 1, 0))
+    b.add_geom(body2, "sphere", size=(0.1,))
+    if method == "add_tendon":
+        b.add_actuator(tendon=b.add_tendon([(j, 1.0), (j2, 0.5)]), gear=2.0)
+    elif method == "add_equality_joint":
+        b.add_equality_joint(j, j2, polycoef=(0.1, 0.5, 0, 0, 0))
+    elif method == "add_equality_connect":
+        b.add_equality_connect(body, body2, anchor=(0.1, 0, 0))
+    elif method == "add_equality_weld":
+        b.add_equality_weld(body, body2, anchor=(0.05, 0, 0),
+                            torquescale=0.5)
+    elif method == "add_contact_pair":
+        b.add_contact_pair(0, 1, condim=4)
+    else:
+        b.add_contact_exclude(body, body2)
+    return b
 
 
 @pytest.mark.parametrize("method", ["add_tendon", "add_equality_joint",
                                     "add_equality_connect",
                                     "add_equality_weld", "add_contact_pair",
                                     "add_contact_exclude"])
-def test_general_engine_declarations_not_ported(method):
-    """What the general engine leaves to M9b raises, naming it.  Fixed
-    tendons are ported; what stays unported of them is the tendon
-    transmission (an actuator on a tendon)."""
-    b = tmodel.ModelBuilder()
-    if method == "add_tendon":
-        j = b.add_joint(b.add_body(0), "hinge")
-        t = b.add_tendon([(j, 1.0)])
-        call = lambda: b.add_actuator(tendon=t)
-    else:
-        call = getattr(b, method)
-    with pytest.raises(NotImplementedError, match="M9b"):
-        call()
+def test_general_engine_declarations_match_jax(method):
+    """What the general engine left to M9b builds as the JAX package
+    builds it: a tendon transmission, equalities (the connect's and weld's
+    qpos0 anchors and relative quaternion resolved), an explicit pair with
+    its condim, an exclude."""
+    jb, tb = _builders()
+    tm = _fields_match(_declare(jb, method), _declare(tb, method),
+                       solver="pgs")
+    if method == "add_contact_exclude":
+        assert tm.contact_pairs == ()
+    if method == "add_contact_pair":
+        assert tm.contact_pair_condim == (4,)
 
 
 def test_unknown_solver_rejected():
@@ -214,8 +263,8 @@ def test_registry():
         "Walker2d-v3", "Walker2d-v4", "mjrl_peg_insertion-v0",
         "mjrl_point_mass-v0", "mjrl_reacher_7dof-v0", "mjrl_swimmer-v0",
         "relocate-v0"]
-    with pytest.raises(NotImplementedError, match="M9b"):
-        torch_envs.make("relocate-v0", device="cpu")
+    assert torch_envs.make("relocate-v0", device="cpu").spec \
+        == torch_envs.EnvSpec(39, 30, 200)
     with pytest.raises(KeyError, match="unknown env id"):
         torch_envs.make("mjrl_hopper-v0")
     env = torch_envs.make("mjrl_swimmer-v0", device="cpu")

@@ -131,13 +131,41 @@ def test_joint_declarations_refused_as_jax(make, match):
 
 
 @pytest.mark.parametrize("jnt", ["ball", "free"])
-def test_motor_on_ball_or_free_joint_names_m9(jnt):
-    b = tmodel.ModelBuilder()
-    j = b.add_joint(b.add_body(0), jnt)
-    with pytest.raises(NotImplementedError, match="M9"):
-        b.add_actuator(j)
+def test_motor_on_ball_or_free_joint_matches_jax(jnt):
+    """An affine motor with a vector gear on a ball or free joint: every
+    table as the JAX package's (float64 at 1e-12, the inverse weights at
+    1e-9)."""
+    from mjrl_tpu.physics.model import ModelBuilder as JaxBuilder
+    builders = []
+    for b in (JaxBuilder(), tmodel.ModelBuilder()):
+        body = b.add_body(0, pos=(0, 0, 1))
+        b.add_geom(body, "capsule", fromto=(0, 0, 0, 0, 0, -0.3),
+                   size=(0.04,))
+        j = b.add_joint(body, jnt)
+        b.add_actuator(j, gear=(0.5, -1.0, 2.0, 0.1, 0.2, 0.3)[
+            :3 if jnt == "ball" else 6], gain=3.0, bias=(0.1, -2.0, -0.5))
+        builders.append(b)
+    jm, tm = builders[0].finalize(jnp.float64), builders[1].finalize()
+    _assert_models_equal(jm, tm, jnt)
 
 
-def test_newton_iterations_name_m9():
-    with pytest.raises(NotImplementedError, match="M9"):
-        tassets.point_mass_model().finalize(solver="pgs", newton_iters=5)
+def _assert_models_equal(jm, tm, name):
+    for f in FIELDS:
+        a, b = getattr(jm, f), getattr(tm, f)
+        if isinstance(b, np.ndarray):
+            tol = 1e-9 if f in INVW else 1e-12
+            np.testing.assert_allclose(b, np.asarray(a, np.float64),
+                                       rtol=tol, atol=tol,
+                                       err_msg=f"{name} {f}")
+        else:
+            assert a == b, (name, f, a, b)
+
+
+def test_newton_iterations_match_jax():
+    """finalize(newton_iters=...) sets the primal Newton solver as the JAX
+    package's does; every other table unchanged."""
+    jm = jassets.point_mass_model().finalize(jnp.float64, solver="pgs",
+                                             newton_iters=5)
+    tm = tassets.point_mass_model().finalize(solver="pgs", newton_iters=5)
+    assert tm.newton_iters == jm.newton_iters == 5
+    _assert_models_equal(jm, tm, "point_mass newton")

@@ -32,6 +32,7 @@ from mjrl_tpu_torch.samplers import rollout as trollout
 
 from test_torch_kernel_host import golden_env_states, limit_active_states
 from test_torch_policy import numpy_params, to_jax
+from test_torch_mjcf_m9b import one_torch_thread  # noqa: F401
 
 B, T, HID = 16, 20, (16, 16)
 STEP_TOL, ROLLOUT_TOL = 1e-10, 1e-8

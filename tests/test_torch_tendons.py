@@ -2,9 +2,9 @@
 
 - The tendon tables of gymnasium's ``humanoid.xml`` (two unlimited
   hip-knee tendons) and of two small chains (``tests/test_tendons.py``'s
-  models: a sprung, damped tendon with a springlength deadband, its
-  motor on a joint since tendon transmissions are M9b; a length-limited
-  tendon) against the JAX package's, ``ten_invweight0`` included.
+  models: a sprung, damped tendon with a springlength deadband and a
+  motor on a joint; a length-limited tendon; tendon transmissions are
+  held in ``test_torch_actuators.py``) against the JAX package's, ``ten_invweight0`` included.
 - Lengths, the passive spring/damper force, the penalty path's limit
   acceleration and the implicit solver's tendon-limit row against the JAX
   package's at 1e-9, on states that cross both ends of the range.
