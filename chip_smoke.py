@@ -150,6 +150,43 @@ and the Adroit hand, each phase asserting no launch of either planar kernel:
             25; finite statistics, the KL within the guard; the success rate
             printed, not checked.
 
+The host utilities (M12) around the training loop, each phase printing its
+seconds and its launches of K1 and K2:
+
+33. native_paths_hopper  a Hopper-v3 rollout (64 x 1000, K2) as ragged
+            paths: returns and GAE through the native path ops (host C++,
+            built with g++) against the plain numpy loops (1e-12), pack_paths
+            exactly; the seconds of each, and of the returns of 1024 host
+            paths of up to 1000 steps.
+34. checkpoint_resume_hopper  Hopper-v3 NPG (64-64, LinearBaseline) at
+            4096 x 1000: agent A takes 2 iterations; B takes 1 and saves
+            (utils/checkpoint.py); C, built with another seed, restores it
+            and takes 1; C's policy equals A's within 1e-5 (the largest
+            difference printed); 4000 K2 launches.
+35. sweep_swimmer_ppo  utils/sweep.py over swimmer_ppo.json, grid seed=1,2
+            rl_num_iter=1, through the job script: two job directories with
+            finite logs, 1000 K1 launches.
+36. visualize_swimmer, visualize_hopper  GymEnv.visualize_policy, horizon
+            100, the mean action: one launch at B = 1 per control step (the
+            step count read from the episode's qpos file); then
+            render_trajectory's geometry for the point mass and the reacher,
+            card against CPU (1e-5, float32).  The frames are drawn where
+            matplotlib is present, else "drawn": false with the reason.
+37. mjcf_env_card  MJCFEnv on envs/mjcf/inverted_pendulum.xml with a torch
+            reward: 4096 x 100 float32 (finite), and 8 x 5 float64 card
+            against CPU (1e-10).
+38. external_env_card  a host env behind GymEnv with the policy on the card
+            (evaluate_policy), then 1 iteration of run_model_accel_npg on
+            configs/point_mass.json with env_factory pointing at it.
+39. profile_swimmer  one Swimmer NPG train_step (4096 x 500) inside
+            utils/profiling.trace: the Chrome trace names K1's kernel (the
+            count of its events printed beside the 500 launches);
+            time_jitted of one control step.
+40. fit_data_card  utils/optimize_model.fit_data at float64, card against
+            CPU with the same permutations (1e-10).
+41. examples_m12  examples/torch_{point_mass_smoke,linear_nn_comparison,
+            visualizer_smoke}.py with their counts cut (each cut printed).
+
 Each phase's launches are counted from just before it to just after.  The
 last line is {"ok": true, "device": {...}}.
 """
@@ -159,6 +196,7 @@ import importlib.util
 import json
 import math
 import os
+import pickle
 import subprocess
 import sys
 import tempfile
@@ -168,13 +206,14 @@ import traceback
 import numpy as np
 import torch
 
-from mjrl_tpu_torch import convert
+from mjrl_tpu_torch import convert, native
 from mjrl_tpu_torch.algos import BC, NPG, TRPO
 from mjrl_tpu_torch.baselines import (LinearBaseline, MLPBaseline,
                                      QuadraticBaseline)
 from mjrl_tpu_torch.device import make_generator
 from mjrl_tpu_torch.envs import GymEnv
 from mjrl_tpu_torch.envs.adroit import AdroitRelocateEnv
+from mjrl_tpu_torch.envs.mjcf_env import MJCFEnv
 from mjrl_tpu_torch.envs.gym_suite import (AntEnv, HalfCheetahEnv,
                                            HopperEnv, HumanoidEnv,
                                            InvertedPendulumEnv, Walker2dEnv)
@@ -191,7 +230,11 @@ from mjrl_tpu_torch.physics.mjcf import load_mjcf
 from mjrl_tpu_torch.physics.model import ELLIPTIC, State
 from mjrl_tpu_torch.physics.planar import step_n_arrays
 from mjrl_tpu_torch.physics.step import qacc_smooth, step_n
-from mjrl_tpu_torch.samplers.rollout import rollout_batch, sample_paths
+from mjrl_tpu_torch.samplers.rollout import (paths_to_list, rollout_batch,
+                                             sample_paths)
+from mjrl_tpu_torch.utils import (checkpoint, optimize_model,
+                                  process_samples, profiling, render, sweep)
+from mjrl_tpu_torch.utils.config import load_config
 from mjrl_tpu_torch.utils.train_agent import train_agent
 
 # published peaks of one H100 SXM (NVIDIA data sheet): the roofline bound
@@ -864,9 +907,9 @@ def job_script():
     return example_module("torch_policy_opt_job_script")
 
 
-def check_log(log, phase):
+def check_log(log, phase, n=NITER):
     for k, vals in log.items():
-        if len(vals) != NITER or not np.all(np.isfinite(vals)):
+        if len(vals) != n or not np.all(np.isfinite(vals)):
             raise AssertionError(f"{phase}: logged {k} missing or not "
                                  f"finite: {vals}")
 
@@ -2200,6 +2243,494 @@ def phase_dapg_relocate():
     return counts
 
 
+# ---------------------------------------------------------------------------
+# M12: the host utilities around the training loop (K1 and K2 under them)
+# ---------------------------------------------------------------------------
+
+def host_point_mass():
+    """A point mass on the host with the gymnasium API (the shape of
+    tests/test_external_env.py::ToyHostEnv: spaces, spec, a 5-tuple step)
+    and the mjrl point mass's observation layout [agent xy, velocity,
+    target xy], so that the registry's point-mass reward reads its paths."""
+    return HostPointMass()
+
+
+class HostPointMass:
+    class _Space:
+        def __init__(self, n, bound):
+            self.shape = (n,)
+            self.low, self.high = -bound * np.ones(n), bound * np.ones(n)
+
+    class _Spec:
+        max_episode_steps = 25
+
+    def __init__(self):
+        self.observation_space = self._Space(6, np.inf)
+        self.action_space = self._Space(2, 1.0)
+        self.spec = self._Spec()
+        self.reset()
+
+    def reset(self, seed=None):
+        rng = np.random.RandomState(seed)
+        self._x, self._v = rng.uniform(-1, 1, 2), np.zeros(2)
+        self._g = rng.uniform(-1, 1, 2)
+        self._t = 0
+        return self._obs(), {}
+
+    def _obs(self):
+        return np.concatenate([self._x, self._v, self._g])
+
+    def step(self, a):
+        self._v = self._v + 0.05 * np.asarray(a)
+        self._x = self._x + 0.05 * self._v
+        self._t += 1
+        d = self._x - self._g
+        r = -np.abs(d).sum() - 0.5 * np.linalg.norm(d)
+        return self._obs(), float(r), False, self._t >= 25, {}
+
+
+def seconds_of(fn):
+    """-> (fn(), host seconds)."""
+    t0 = time.time()
+    out = fn()
+    return out, time.time() - t0
+
+
+def phase_native_paths_hopper():
+    """A Hopper-v3 rollout (64 x 1000, K2) turned into paths; returns and
+    GAE through the native path ops against the plain numpy loops (1e-12),
+    pack_paths exactly."""
+    env = HopperEnv()
+    policy = MLP(env.spec, hidden_sizes=(64, 64), seed=5)
+    gen = make_generator(3, env.device)
+    batch, counts, roll_s = run_counted(lambda: rollout_batch(
+        env, policy.config, policy.params, policy.transforms, gen, 64,
+        horizon=HOPPER_HORIZON))
+    if counts != {CONTACT: HOPPER_HORIZON, SMOOTH: 0}:
+        raise AssertionError(f"native_paths_hopper: launched {counts}")
+    paths = paths_to_list(batch)
+    lengths = [len(p["rewards"]) for p in paths]
+    if len(set(lengths)) < 2:
+        raise AssertionError("native_paths_hopper: the paths are not ragged")
+    rewards = [p["rewards"].astype(np.float64) for p in paths]
+    library, build_s = seconds_of(native.build)      # g++, at first use
+    _, load_s = seconds_of(native._load)             # ctypes, once
+    rets, native_s = seconds_of(lambda: native.discount_sums(rewards, 0.995))
+    plain, plain_s = seconds_of(
+        lambda: native.discount_sums_plain(rewards, 0.995))
+    errs = {"returns": max(np.abs(a - b).max() for a, b in zip(rets, plain))}
+    ps_paths = [dict(p) for p in paths]
+    baseline = LinearBaseline(env.spec)
+    process_samples.compute_returns(ps_paths, 0.995)
+    baseline.fit(ps_paths)
+    (_, adv_s) = seconds_of(lambda: process_samples.compute_advantages(
+        ps_paths, baseline, 0.995, 0.97))
+    want = native.gae_advantages_plain(
+        rewards, [p["baseline"] for p in ps_paths],
+        [p["terminated"] for p in ps_paths], 0.995, 0.97)
+    errs["advantages"] = max(np.abs(p["advantages"] - w).max()
+                             for p, w in zip(ps_paths, want))
+    errs["compute_returns"] = max(np.abs(p["returns"] - r).max()
+                                  for p, r in zip(ps_paths, plain))
+    obs = [p["observations"] for p in paths]
+    (packed, pack_s) = seconds_of(lambda: native.pack_paths(obs))
+    (ref, pack_plain_s) = seconds_of(lambda: native.pack_paths_plain(obs))
+    if not (np.array_equal(packed[0], ref[0])
+            and np.array_equal(packed[1], ref[1])):
+        raise AssertionError("native_paths_hopper: pack_paths differs")
+    # many long paths: 1024 ragged paths of up to 1000 steps (the traffic
+    # of a 1000-step horizon under a policy that stays up), host data
+    rng = np.random.RandomState(4)
+    long_paths = [rng.normal(size=n) for n in rng.randint(1, 1001, 1024)]
+    long_ret, long_s = seconds_of(
+        lambda: native.discount_sums(long_paths, 0.995))
+    long_ref, long_plain_s = seconds_of(
+        lambda: native.discount_sums_plain(long_paths, 0.995))
+    errs["returns_long"] = max(np.abs(a - b).max()
+                               for a, b in zip(long_ret, long_ref))
+    if max(errs.values()) > 1e-12:
+        raise AssertionError(f"native_paths_hopper: {errs}")
+    emit({"phase": "native_paths_hopper", "num_paths": len(paths),
+          "path_lengths_min_max": [min(lengths), max(lengths)],
+          "rollout_seconds": roll_s, "kernel_launches": counts,
+          "max_abs_err": errs, "tolerance": 1e-12,
+          "discount_sums_s": native_s, "discount_sums_plain_s": plain_s,
+          "compute_advantages_s": adv_s, "pack_paths_s": pack_s,
+          "pack_paths_plain_s": pack_plain_s,
+          "long_paths_steps": int(sum(len(x) for x in long_paths)),
+          "discount_sums_long_s": long_s,
+          "discount_sums_long_plain_s": long_plain_s,
+          "library": os.path.relpath(library, HERE), "build_s": build_s,
+          "load_s": load_s})
+    return counts
+
+
+def hopper_npg_agent(seed):
+    e = GymEnv("Hopper-v3")
+    policy = MLP(e.spec, hidden_sizes=(64, 64), seed=seed)
+    return NPG(e, policy, LinearBaseline(e.spec), normalized_step_size=0.05,
+               seed=seed, save_logs=True)
+
+
+def phase_checkpoint_resume_hopper():
+    """Hopper-v3 NPG at 4096 x 1000, float32: agent A takes 2 iterations;
+    B takes 1 and saves a checkpoint; C, built with another seed, restores
+    it and takes 1: C's policy must equal A's."""
+    step = dict(N=NUM_ENVS, horizon=HOPPER_HORIZON, gamma=0.995,
+                gae_lambda=0.97)
+
+    def run():
+        a = hopper_npg_agent(11)
+        a.train_step(**step)
+        a.train_step(**step)
+        b = hopper_npg_agent(11)
+        b.train_step(**step)
+        with tempfile.TemporaryDirectory() as tmp:
+            checkpoint.save_agent_checkpoint(tmp, b, 1)
+            c = hopper_npg_agent(12)
+            it = checkpoint.restore_agent_checkpoint(tmp, c)
+            size = os.path.getsize(os.path.join(tmp, "state_1.pt"))
+        c.train_step(**step)
+        return a, c, it, size
+
+    (a, c, it, size), counts, seconds = run_counted(run)
+    if counts != {CONTACT: 4 * HOPPER_HORIZON, SMOOTH: 0}:
+        raise AssertionError(f"checkpoint_resume_hopper: launched {counts}")
+    diff = float(np.abs(a.policy.get_param_values()
+                        - c.policy.get_param_values()).max())
+    bound = 1e-5
+    if it != 1 or not diff <= bound \
+            or not np.isfinite(a.policy.get_param_values()).all():
+        raise AssertionError(f"checkpoint_resume_hopper: resumed policy "
+                             f"differs by {diff} (iteration {it})")
+    emit({"phase": "checkpoint_resume_hopper", "num_envs": NUM_ENVS,
+          "horizon": HOPPER_HORIZON, "seconds": seconds,
+          "kernel_launches": counts, "max_abs_param_diff": diff,
+          "bitwise": diff == 0.0, "bound": bound, "checkpoint_bytes": size,
+          "running_score": [a.running_score, c.running_score]})
+    return counts
+
+
+def phase_sweep_swimmer_ppo():
+    """run_sweep over swimmer_ppo.json, grid seed=1,2 rl_num_iter=1,
+    through the port's job script: two job directories, finite logs."""
+    cfg = os.path.join(EXAMPLES, "example_configs", "swimmer_ppo.json")
+    grid = ["seed=1,2", "rl_num_iter=1"]
+    with tempfile.TemporaryDirectory() as tmp:
+        with contextlib.redirect_stdout(sys.stderr):
+            res, counts, seconds = run_counted(lambda: sweep.run_sweep(
+                tmp, load_config(cfg), grid, sweep.job_script_entry()))
+        logs = {}
+        for job_dir, overrides in res:
+            with open(os.path.join(job_dir, "logs", "log.pickle"),
+                      "rb") as f:
+                log = pickle.load(f)
+            check_log(log, f"sweep_swimmer_ppo {overrides}", 1)
+            logs[os.path.basename(job_dir)] = log["stoc_pol_mean"]
+    if len(res) != 2 or counts != {SMOOTH: 2 * HORIZON, CONTACT: 0}:
+        raise AssertionError(f"sweep_swimmer_ppo: {len(res)} jobs, "
+                             f"launched {counts}")
+    emit({"phase": "sweep_swimmer_ppo", "grid": grid, "seconds": seconds,
+          "kernel_launches": counts, "stoc_pol_mean": logs})
+    return counts
+
+
+def phase_visualize(env_id, kernel, phase):
+    """GymEnv.visualize_policy, horizon 100, the mean action: one launch
+    of ``kernel`` at B = 1 per control step; the frames drawn where
+    matplotlib is present."""
+    e = GymEnv(env_id)
+    policy = MLP(e.spec, hidden_sizes=(64, 64), seed=4)
+    other = SMOOTH if kernel == CONTACT else CONTACT
+    with tempfile.TemporaryDirectory() as tmp:
+        with contextlib.redirect_stdout(sys.stderr):
+            frames, counts, seconds = run_counted(lambda: e.visualize_policy(
+                policy, horizon=100, mode="evaluation", save_dir=tmp))
+        qpos = np.load(os.path.join(tmp, "episode_0_qpos.npy"))
+        written = sorted(os.listdir(tmp))
+    steps = len(qpos) - 1
+    drawn, reason = render.drawing_available()
+    if counts != {kernel: steps, other: 0} or not 0 < steps <= 100 \
+            or not np.isfinite(qpos).all():
+        raise AssertionError(f"{phase}: {steps} steps, launched {counts}")
+    if drawn != (frames == steps + 1):
+        raise AssertionError(f"{phase}: {frames} frames drawn for "
+                             f"{steps + 1} states")
+    emit({"phase": phase, "seconds": seconds, "steps": steps,
+          "kernel_launches": counts, "ms_per_step": seconds / steps * 1e3,
+          "drawn": drawn, "reason": reason, "frames": frames,
+          "files": written})
+    return counts
+
+
+def render_card_vs_cpu():
+    """render_trajectory's geometry (one batched forward kinematics over
+    the frames) on the card against the CPU, float32, for the point mass
+    and the reacher; the frames drawn where matplotlib is present."""
+    out = {}
+    for env_id, T in (("mjrl_point_mass-v0", 20), ("mjrl_reacher_7dof-v0",
+                                                   20)):
+        model = GymEnv(env_id).env.model
+        rng = np.random.RandomState(8)
+        q = np.asarray(model.qpos0) + rng.uniform(-0.6, 0.6, (T, model.nq))
+        card, card_s = seconds_of(
+            lambda: render.trajectory_geometry(model, q, "cuda"))
+        cpu = render.trajectory_geometry(model, q, "cpu")
+        err = max(float(np.abs(a - b).max()) for a, b in zip(card, cpu))
+        if err > 1e-5:
+            raise AssertionError(f"render {env_id}: card vs CPU {err}")
+        with tempfile.TemporaryDirectory() as tmp:
+            with contextlib.redirect_stdout(sys.stderr):
+                frames, draw_s = seconds_of(lambda: render.render_trajectory(
+                    model, q, save_dir=tmp, device="cuda"))
+        drawn, reason = render.drawing_available()
+        if drawn != (frames == T):
+            raise AssertionError(f"render {env_id}: {frames} frames")
+        out[env_id] = {"frames": T, "geometry_max_abs_err": err,
+                       "geometry_s": card_s, "drawn": drawn,
+                       "reason": reason, "draw_s": draw_s}
+    return out
+
+
+def phase_visualize_hopper():
+    counts = phase_visualize("Hopper-v3", CONTACT, "visualize_hopper")
+    rec, extra, seconds = run_counted(render_card_vs_cpu)
+    if extra != NO_LAUNCHES:
+        raise AssertionError(f"render_trajectory launched {extra}")
+    emit({"phase": "render_trajectory", "seconds": seconds, **rec})
+    return counts
+
+
+INVERTED_PENDULUM = os.path.join(HERE, "mjrl_tpu_torch", "envs", "mjcf",
+                                 "inverted_pendulum.xml")
+
+
+def pendulum_mjcf_env(dtype=torch.float32, device=None):
+    return MJCFEnv(INVERTED_PENDULUM, frame_skip=2, horizon=100,
+                   reset_noise=0.01, dtype=dtype, device=device,
+                   reward_fn=lambda obs, act: 1.0 - obs[..., 1] ** 2,
+                   done_fn=lambda obs: obs[..., 1].abs() > 0.2)
+
+
+def phase_mjcf_env_card():
+    """MJCFEnv on the port's copy of inverted_pendulum.xml with a torch
+    reward: a 4096 x 100 float32 rollout (finite), and 8 x 5 float64 on the
+    card against the CPU (1e-10)."""
+    env = pendulum_mjcf_env()
+    policy = MLP(env.spec, hidden_sizes=(32, 32), seed=2)
+    gen = make_generator(5, env.device)
+    batch, counts, seconds = run_counted(lambda: rollout_batch(
+        env, policy.config, policy.params, policy.transforms, gen, NUM_ENVS,
+        horizon=100))
+    check_finite(batch, "mjcf_env_card")
+    if counts != NO_LAUNCHES:
+        raise AssertionError(f"mjcf_env_card: launched {counts}")
+    B, T = 8, 5
+    rng = np.random.RandomState(6)
+    q0, v0 = rng.uniform(-0.1, 0.1, (B, 2)), rng.uniform(-0.5, 0.5, (B, 2))
+    noise = rng.normal(size=(T, B, 1))
+    params = convert.params_to_numpy(MLP(
+        env.spec, hidden_sizes=(32, 32), seed=3, dtype=torch.float64,
+        device="cpu").params)
+    out = []
+    for d in ("cuda", "cpu"):
+        e = pendulum_mjcf_env(torch.float64, d)
+        pol = convert.policy_params_from_numpy(
+            MLP(e.spec, hidden_sizes=(32, 32), dtype=torch.float64,
+                device=d), params)
+        out.append(rollout_batch(
+            e, pol.config, pol.params, pol.transforms, None, B, horizon=T,
+            state0=e.state_from_qpos_qvel(q0, v0),
+            noise=torch.tensor(noise, device=d)))
+    errs = {}
+    for k in ("observations", "actions", "rewards", "mask"):
+        errs[k] = (out[0][k].cpu() - out[1][k]).abs().max().item()
+    if max(errs.values()) > 1e-10:
+        raise AssertionError(f"mjcf_env_card: card vs CPU {errs}")
+    emit({"phase": "mjcf_env_card", "num_envs": NUM_ENVS, "horizon": 100,
+          "seconds": seconds, "kernel_launches": counts,
+          "ms_per_control_step": seconds / 100 * 1e3,
+          "valid_steps": int(batch["mask"].sum()),
+          "card_vs_cpu": {"B": B, "horizon": T, "dtype": "float64",
+                          "max_abs_err": errs, "tolerance": 1e-10}})
+    return counts
+
+
+def phase_external_env_card():
+    """A host env behind GymEnv with the policy on the card: evaluate_policy,
+    then 1 iteration of run_model_accel_npg on configs/point_mass.json with
+    env_factory pointing at it."""
+    e = GymEnv(host_point_mass)
+    policy = MLP(e.spec, hidden_sizes=(32, 32), seed=1)
+    if not e._external or policy.device.type != "cuda":
+        raise AssertionError("external_env_card: not an external env")
+    (base, _, _), eval_s = seconds_of(
+        lambda: e.evaluate_policy(policy, num_episodes=4, mean_action=True))
+    from mjrl_tpu_torch.algos.model_accel.run_experiments import \
+        run_model_accel_npg
+    with open(os.path.join(M10_CONFIGS, "point_mass.json")) as f:
+        job = json.load(f)
+    job.update(num_iter=1, eval_rollouts=2,
+               env_factory="chip_smoke:host_point_mass")
+    with tempfile.TemporaryDirectory() as tmp:
+        with contextlib.redirect_stdout(sys.stderr):
+            (agent, logger), counts, seconds = run_counted(
+                lambda: run_model_accel_npg.run(tmp, job))
+    log = logger.log
+    check_log(log, "external_env_card", 1)
+    if counts != NO_LAUNCHES or not np.isfinite(base).all() \
+            or log["num_samples"] != [job["init_samples"]] \
+            or agent.device.type != "cuda" or not agent.env._external:
+        raise AssertionError(f"external_env_card: launched {counts}, "
+                             f"num_samples {log['num_samples']}")
+    emit({"phase": "external_env_card", "evaluate_policy_s": eval_s,
+          "eval_mean_return": base[0], "runner_seconds": seconds,
+          "kernel_launches": counts, "num_samples": log["num_samples"],
+          "rollout_score": log["rollout_score"],
+          "eval_score": log["eval_score"],
+          "data_collect_time": log["data_collect_time"],
+          "model_update_time": log["model_update_time"],
+          "policy_update_time": log["policy_update_time"]})
+    return counts
+
+
+def trace_kernel_events(events, kernel_name):
+    """-> (the number of the Chrome trace's kernel events named
+    ``kernel_name``, the number of the trace's launch calls that have no
+    kernel event, and the first 8 of those: each its index among the
+    launch calls, their count, and its start relative to the first and
+    last launch, in microseconds)."""
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    hits = sum(kernel_name in e.get("name", "") for e in kernels)
+    have = {e.get("args", {}).get("correlation") for e in kernels}
+    launches = sorted((e for e in events
+                       if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                       and "LaunchKernel" in e.get("name", "")),
+                      key=lambda e: e.get("ts", 0))
+    missing = []
+    for i, e in enumerate(launches):
+        if e.get("args", {}).get("correlation") not in have:
+            missing.append({"index": i, "of": len(launches),
+                            "name": e.get("name"),
+                            "from_first_us": e["ts"] - launches[0]["ts"],
+                            "to_last_us": launches[-1]["ts"] - e["ts"]})
+    return hits, len(missing), missing[:8]
+
+
+def phase_profile_swimmer():
+    """One Swimmer NPG train_step (4096 x 500) under profiling.trace: the
+    trace file names K1's kernel; time_jitted of one control step."""
+    e = GymEnv("mjrl_swimmer-v0")
+    policy = MLP(e.spec, hidden_sizes=(64, 64), seed=6)
+    agent = NPG(e, policy, LinearBaseline(e.spec), normalized_step_size=0.1,
+                seed=6, save_logs=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        def run():
+            with profiling.trace(tmp):
+                agent.train_step(N=NUM_ENVS, horizon=HORIZON, gamma=0.995,
+                                 gae_lambda=0.97)
+        _, counts, seconds = run_counted(run)
+        path = os.path.join(tmp, "trace.json")
+        size = os.path.getsize(path)
+        kernel_name = "planar_step_kernel_f32"
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    hits, n_missing, missing = trace_kernel_events(events, kernel_name)
+    if counts != {SMOOTH: HORIZON, CONTACT: 0} or hits < 1:
+        raise AssertionError(f"profile_swimmer: launched {counts}, the "
+                             f"trace names {kernel_name} {hits} times")
+    fenv = e.env
+    state = fenv.reset(NUM_ENVS, make_generator(1, fenv.device))
+    act = torch.zeros((NUM_ENVS, fenv.action_dim), device=fenv.device)
+    step_s, _, _ = run_counted(lambda: profiling.time_jitted(
+        fenv.step, state, act, iters=50, warmup=5))
+    emit({"phase": "profile_swimmer", "seconds": seconds,
+          "kernel_launches": counts, "trace_bytes": size,
+          "trace_kernel_events": hits, "expected_kernel_events": HORIZON,
+          "launches_without_kernel_event": n_missing,
+          "first_launches_without_kernel_event": missing,
+          "time_jitted_control_step_ms": step_s * 1e3})
+    return counts
+
+
+def phase_fit_data_card():
+    """fit_data (Adam) at float64 on the card against the CPU, the same
+    injected permutations: 1e-10."""
+    rng = np.random.RandomState(12)
+    n, d = 512, 16
+    x = rng.normal(size=(n, d))
+    y = np.tanh(x @ rng.normal(size=(d, 4)))
+    p = {"w1": rng.normal(0, 0.3, (d, 64)), "b1": np.zeros(64),
+         "w2": rng.normal(0, 0.3, (64, 4)), "b2": np.zeros(4)}
+    perms = np.stack([rng.permutation(n) for _ in range(3)])
+
+    def loss(q, xb, yb):
+        return torch.mean((torch.tanh(xb @ q["w1"] + q["b1"]) @ q["w2"]
+                           + q["b2"] - yb) ** 2)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        params = {k: torch.tensor(v, device=dev) for k, v in p.items()}
+        out[dev], secs = seconds_of(lambda: optimize_model.fit_data(
+            loss, params, x, y, batch_size=64, epochs=3, perms=perms))
+        out[dev + "_s"] = secs
+    err = max((out["cuda"][0][k].cpu() - out["cpu"][0][k]).abs().max().item()
+              for k in p)
+    loss_err = float(np.abs(np.subtract(out["cuda"][2],
+                                        out["cpu"][2])).max())
+    if max(err, loss_err) > 1e-10 or out["cuda"][1]["count"] != 24:
+        raise AssertionError(f"fit_data_card: {err}, losses {loss_err}")
+    emit({"phase": "fit_data_card", "adam_steps": 24,
+          "max_abs_err_params": err, "max_abs_err_losses": loss_err,
+          "tolerance": 1e-10, "card_s": out["cuda_s"],
+          "cpu_s": out["cpu_s"], "losses": out["cuda"][2]})
+    return NO_LAUNCHES
+
+
+def phase_examples_m12():
+    """The three examples of this slice, their counts cut (each cut
+    printed): the point-mass smoke benchmark, the NN-against-linear
+    comparison on the swimmer and the visualizer smoke script."""
+    cuts = {
+        "torch_point_mass_smoke": (["--niter", "2"], "niter 50 -> 2"),
+        "torch_linear_nn_comparison": (["--niter", "1", "--eval_rollouts",
+                                        "1"],
+                                       "niter 50 -> 1, eval_rollouts 5 -> 1"),
+        "torch_visualizer_smoke": (["--niter", "1", "--episodes", "1"],
+                                   "niter 10 -> 1, episodes 2 -> 1"),
+    }
+    # the swimmer: 2 policies x (10 x 500 rollout + 1 x 500 evaluation)
+    want = {"torch_point_mass_smoke": NO_LAUNCHES,
+            "torch_linear_nn_comparison": {SMOOTH: 2 * 2 * HORIZON,
+                                           CONTACT: 0},
+            "torch_visualizer_smoke": NO_LAUNCHES}
+    total = dict(NO_LAUNCHES)
+    rec = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, (argv, cut) in cuts.items():
+            mod = example_module(name)
+            job = ["--job_prefix" if name == "torch_linear_nn_comparison"
+                   else "--job", os.path.join(tmp, name)]
+            with contextlib.redirect_stdout(sys.stderr):
+                out, counts, seconds = run_counted(
+                    lambda: mod.main(argv + job))
+            agents = list(out.values()) if isinstance(out, dict) else \
+                [out[0] if isinstance(out, tuple) else out]
+            for agent in agents:
+                if not np.isfinite(agent.policy.get_param_values()).all() \
+                        or agent.device.type != "cuda":
+                    raise AssertionError(f"{name}: policy not finite")
+            if counts != want[name]:
+                raise AssertionError(f"{name}: launched {counts}")
+            rec[name] = {"cut": cut, "seconds": seconds,
+                         "kernel_launches": counts}
+            if name == "torch_visualizer_smoke":
+                rec[name]["frames"] = out[1]
+            for k in total:
+                total[k] += counts[k]
+    emit({"phase": "examples_m12", **rec})
+    return total
+
+
 def main():
     t_start = time.time()
     phase = "device"
@@ -2308,6 +2839,28 @@ def main():
             kernel["launches_by_path"][phase] = counts[SMOOTH]
             contact["launches_by_path"][phase] = counts[CONTACT]
         emit({"phase": "m9b", "phase_seconds": phase_seconds,
+              "seconds": sum(phase_seconds.values())})
+        # M12: the host utilities around the training loop
+        phase_seconds = {}
+        for phase, fn in (
+                ("native_paths_hopper", phase_native_paths_hopper),
+                ("checkpoint_resume_hopper", phase_checkpoint_resume_hopper),
+                ("sweep_swimmer_ppo", phase_sweep_swimmer_ppo),
+                ("visualize_swimmer",
+                 lambda: phase_visualize("mjrl_swimmer-v0", SMOOTH,
+                                         "visualize_swimmer")),
+                ("visualize_hopper", phase_visualize_hopper),
+                ("mjcf_env_card", phase_mjcf_env_card),
+                ("external_env_card", phase_external_env_card),
+                ("profile_swimmer", phase_profile_swimmer),
+                ("fit_data_card", phase_fit_data_card),
+                ("examples_m12", phase_examples_m12)):
+            t0 = time.time()
+            counts = fn()
+            phase_seconds[phase] = time.time() - t0
+            kernel["launches_by_path"][phase] = counts[SMOOTH]
+            contact["launches_by_path"][phase] = counts[CONTACT]
+        emit({"phase": "m12", "phase_seconds": phase_seconds,
               "seconds": sum(phase_seconds.values())})
     except Exception:
         traceback.print_exc()

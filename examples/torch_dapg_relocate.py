@@ -77,8 +77,10 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.cross_eval_episodes > 0:
         raise NotImplementedError(
-            "the real-MuJoCo cross-evaluation needs the host utilities "
-            "(ROADMAP.md M12)")
+            "the real-MuJoCo cross-evaluation is the JAX package's "
+            "benchmarks/parity/cross_eval_relocate.py (mujoco, "
+            "gymnasium-robotics and a JAX policy pickle): the port does not "
+            "run the benchmark folders")
     emit = lambda rec: print(json.dumps(rec), flush=True)
 
     e = GymEnv("relocate-v0", device=args.device, horizon=args.horizon)

@@ -59,9 +59,10 @@ class BatchREINFORCE:
         self.running_score = None
         self.desired_kl = desired_kl
         self.device = resolve_device(device)
-        for name, dev in (("env", self.fenv.device),
-                          ("policy", policy.device),
-                          ("baseline", baseline.device)):
+        devices = [("policy", policy.device), ("baseline", baseline.device)]
+        if not getattr(self.fenv, "_external", False):   # a host env
+            devices.append(("env", self.fenv.device))
+        for name, dev in devices:
             if dev.type != self.device.type:
                 raise ValueError(
                     f"{name} lives on {dev}, the agent on {self.device}")
@@ -102,7 +103,10 @@ class BatchREINFORCE:
     @property
     def fenv(self):
         """The functional env behind either a GymEnv wrapper or a raw
-        functional env."""
+        functional env (a GymEnv around an external host env: the GymEnv,
+        which has no functional env)."""
+        if getattr(self.env, "_external", False):
+            return self.env
         return self.env.env if hasattr(self.env, "env") and \
             hasattr(self.env.env, "reset") else self.env
 

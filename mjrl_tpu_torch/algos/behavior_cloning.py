@@ -6,6 +6,11 @@
   log_std set from the action scale, log(out_scale + 1e-12);
 - Adam over epochs x (num_samples // batch_size) minibatches drawn with
   replacement; the Adam state persists across fits (``self.opt_state``).
+  ``optimizer=`` takes a factory ``list of parameter tensors ->
+  torch.optim.Optimizer`` instead (the JAX package takes any optax
+  transformation): the optimizer is built once over parameter tensors the
+  agent keeps, and its state persists across fits and pickles; the
+  factory is pickled by reference, so a lambda cannot be pickled.
 
 Data, transforms and log_std take the policy's dtype (the JAX package casts
 them to float32 whatever the policy's dtype).
@@ -35,9 +40,6 @@ class BC:
                  set_transforms=False,
                  device=None,
                  **kwargs):
-        if optimizer is not None:
-            raise NotImplementedError(
-                "BC takes its own Adam; a custom optimizer is not ported")
         self.device = resolve_device(device)
         if policy.device.type != self.device.type:
             raise ValueError(
@@ -58,16 +60,34 @@ class BC:
             self.set_variance_with_data(out_scale)
 
         self._lr = lr
-        self.opt_state = adam_init(self.policy.params)
+        self._optimizer = optimizer
+        if optimizer is None:
+            self.opt_state = adam_init(self.policy.params)
+        else:
+            self._build_optimizer(self.policy.params)
         self.seed = kwargs.get("seed", 0)
         self.generator = make_generator(self.seed, self.device)
+
+    def _build_optimizer(self, params, opt_state=None):
+        """The factory's optimizer over tensors the agent keeps (each fit
+        copies the policy's parameters into them)."""
+        self._opt_params = {k: v.detach().clone().requires_grad_(True)
+                            for k, v in params.items()}
+        self._torch_opt = self._optimizer(list(self._opt_params.values()))
+        if opt_state is not None:
+            self._torch_opt.load_state_dict(opt_state)
 
     # -- pickling: the generator travels as its state, tensors on the CPU --
     def __getstate__(self):
         state = self.__dict__.copy()
         state["generator"] = self.generator.get_state()
-        state["opt_state"] = tree_to(self.opt_state, "cpu")
         state["device"] = str(self.device)
+        if self._optimizer is None:
+            state["opt_state"] = tree_to(self.opt_state, "cpu")
+        else:
+            state["_opt_params"] = tree_to(self._opt_params, "cpu")
+            state["_torch_opt"] = tree_to(self._torch_opt.state_dict(),
+                                          "cpu")
         return state
 
     def __setstate__(self, state):
@@ -77,7 +97,11 @@ class BC:
         if dev.type == "cuda" and not torch.cuda.is_available():
             dev = torch.device("cpu")
         self.device = dev
-        self.opt_state = tree_to(self.opt_state, dev)
+        if self._optimizer is None:
+            self.opt_state = tree_to(self.opt_state, dev)
+        else:
+            self._build_optimizer(tree_to(self._opt_params, dev),
+                                  self._torch_opt)
         self.generator = torch.Generator(device=dev)
         try:
             self.generator.set_state(gen_state)
@@ -151,8 +175,14 @@ class BC:
         idxs = torch.as_tensor(idxs, device=self.device)
         pol = self.policy.config
         tr = self.policy.transforms
-        p = {k: v.detach().clone().requires_grad_(True)
-             for k, v in self.policy.params.items()}
+        if self._optimizer is None:
+            p = {k: v.detach().clone().requires_grad_(True)
+                 for k, v in self.policy.params.items()}
+        else:
+            p = self._opt_params
+            with torch.no_grad():
+                for k, v in self.policy.params.items():
+                    p[k].copy_(v)
         for idx in idxs:
             with torch.enable_grad():
                 loss = self._loss(p, tr, obs[idx], act[idx])
@@ -160,10 +190,16 @@ class BC:
                                             allow_unused=True)
             grads = {k: torch.zeros_like(v) if g is None else g
                      for (k, v), g in zip(p.items(), grads)}
-            self.opt_state = adam_step_(p, grads, self.opt_state, self._lr)
+            if self._optimizer is None:
+                self.opt_state = adam_step_(p, grads, self.opt_state,
+                                            self._lr)
+            else:
+                for k, v in p.items():
+                    v.grad = grads[k]
+                self._torch_opt.step()
             with torch.no_grad():
                 p["log_std"].clamp_(min=pol.min_log_std)
-        new_params = {k: v.detach() for k, v in p.items()}
+        new_params = {k: v.detach().clone() for k, v in p.items()}
         self.policy.params = new_params
         self.policy.old_params = {k: v.clone() for k, v in new_params.items()}
 

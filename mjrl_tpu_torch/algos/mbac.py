@@ -6,8 +6,8 @@ environment at a time, while labelling every visited state with the MPC
 expert's action (``MPCActor``, which shoots its candidates through the
 batched real env); push the labelled paths into a FIFO trajectory buffer
 capped at ``buffer_size`` paths; then behaviour-clone the policy to the
-expert actions with BC's own Adam (a custom optimizer is refused, as in
-``BC``).
+expert actions with BC's Adam, or the optimizer a factory passed as
+``optimizer=`` builds (as in ``BC``).
 """
 
 import numpy as np

@@ -424,8 +424,9 @@ class WorldModelEnsemble:
                                               for m in members])
                               for k in members[0]._dyn[name]}
         params = stack("params")
+        opt = adam_init(params)
         self._dyn = {"params": params, "tr": stack("tr"),
-                     "opt": adam_init(params)}
+                     "opt": {"mu": opt["mu"], "nu": opt["nu"]}}
         self._counts = [0] * num_models
         for i, m in enumerate(members):
             m._ens, m._index, m._dyn = self, i, None
@@ -480,10 +481,6 @@ class WorldModelEnsemble:
         """Fit every member on the same data and transforms, each on its
         own permutations -> epoch losses (num_models, epochs).  ``perms``
         (num_models, epochs, n), for tests, replaces the drawn ones."""
-        if len(set(self._counts)) != 1:
-            raise NotImplementedError(
-                "the members' Adam step counts differ (a member was fitted "
-                "on its own); the stacked fit takes one count")
         first = self.members[0]
         cfg, t = first.dyn_cfg, first._t
         s, a, sp = t(s), t(a), t(sp)
@@ -505,7 +502,13 @@ class WorldModelEnsemble:
             perm_fn = lambda e: torch.stack([
                 torch.randperm(n, generator=m.generator, device=self.device)
                 for m in self.members])
-        opt = {"count": self._counts[0], **self._dyn["opt"]}
+        # one count for all members, the usual case; where a member was
+        # fitted on its own the counts differ, and the stacked step then
+        # corrects each member's moments by its own count
+        count = self._counts[0] if len(set(self._counts)) == 1 \
+            else torch.tensor(self._counts, device=self.device)
+        opt = {"mu": self._dyn["opt"]["mu"], "nu": self._dyn["opt"]["nu"],
+               "count": count}
         params, state, losses = fit_scan(
             loss_fn, self._dyn["params"], opt, n, int(fit_mb_size),
             int(fit_epochs), max_steps, perm_fn, first._fit_lr,
@@ -515,7 +518,8 @@ class WorldModelEnsemble:
             "tr": {k: v.unsqueeze(0).repeat((M,) + (1,) * v.dim())
                    for k, v in tr.items()},
             "opt": {"mu": state["mu"], "nu": state["nu"]}}
-        self._counts = [state["count"]] * M
+        self._counts = state["count"].tolist() \
+            if torch.is_tensor(state["count"]) else [state["count"]] * M
         return losses.cpu().numpy()
 
     @torch.no_grad()

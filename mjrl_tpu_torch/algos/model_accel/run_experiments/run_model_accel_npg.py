@@ -18,6 +18,7 @@ Usage (``--device cpu`` without a GPU):
 
 import argparse
 import copy
+import importlib
 import os
 import pickle
 import time as timer
@@ -65,11 +66,16 @@ def run(output, job_data, device=None):
     seed = job_data["seed"]
     np.random.seed(seed)
 
+    # env_factory = "pkg.module:callable" constructs any host-API env
+    # (gymnasium, dmc) behind the GymEnv surface; it steps on the host
     if job_data.get("env_factory"):
-        raise NotImplementedError(
-            "external host-API envs (env_factory) are not ported "
-            "(ROADMAP.md M12)")
-    e = GymEnv(env_name, act_repeat=job_data["act_repeat"], device=device)
+        mod_name, _, fn_name = job_data["env_factory"].partition(":")
+        factory = getattr(importlib.import_module(mod_name), fn_name)
+        e = GymEnv(factory, act_repeat=job_data["act_repeat"],
+                   horizon=job_data.get("horizon"), device=device)
+    else:
+        e = GymEnv(env_name, act_repeat=job_data["act_repeat"],
+                   device=device)
     e.set_seed(seed)
 
     # reward function: the registry first, else the env's batched reward;
@@ -119,7 +125,7 @@ def run(output, job_data, device=None):
         to_collect = job_data["init_samples"] if outer_iter == 0 \
             else job_data["iter_samples"]
         iter_paths = sample_data_batch(
-            to_collect, e.env, agent.policy, eval_mode=False,
+            to_collect, e, agent.policy, eval_mode=False,
             base_seed=seed + outer_iter)
         for p in iter_paths:
             paths.append(p)

@@ -4,7 +4,7 @@
 the stateful host-side API.  Ported: the point mass, the swimmer, the
 7-DoF reacher, peg insertion, the planar gym locomotion suite (Hopper,
 Walker2d, HalfCheetah), InvertedPendulum, Ant, Humanoid and the Adroit hand
-relocate task.
+relocate task; ``MJCFEnv`` turns any MJCF file into an env.
 """
 
 from mjrl_tpu_torch.envs.adroit import AdroitRelocateEnv
@@ -12,6 +12,7 @@ from mjrl_tpu_torch.envs.base import EnvSpec, EnvState, MujocoLikeEnv
 from mjrl_tpu_torch.envs.gym_suite import (AntEnv, HalfCheetahEnv,
                                            HopperEnv, HumanoidEnv,
                                            InvertedPendulumEnv, Walker2dEnv)
+from mjrl_tpu_torch.envs.mjcf_env import MJCFEnv
 from mjrl_tpu_torch.envs.peg_insertion import PegEnv
 from mjrl_tpu_torch.envs.point_mass import PointMassEnv
 from mjrl_tpu_torch.envs.reacher import Reacher7DOFEnv

@@ -11,7 +11,10 @@ optax's order of operations, one step at count t (from 1):
     p  <- p - lr u
 
 The state is ``{"count": int, "mu": {name: tensor}, "nu": {name: tensor}}``
-and persists across calls, like an optax state carried by the caller.
+and persists across calls, like an optax state carried by the caller.  For
+a stack of models on a leading axis (the world-model ensemble) ``count``
+may be an (M,) tensor: each member's bias correction then takes its own
+count, as the JAX package's ``vmap`` over per-member optax states does.
 ``adam_step_`` works in place on the parameter and moment tensors
 (``torch._foreach_*``: a few launches per step whatever the number of
 tensors); a caller that must leave its input state untouched steps on
@@ -51,8 +54,16 @@ def adam_step_(params, grads, state, lr, weight_decay=0.0, b1=0.9, b2=0.999,
     torch._foreach_add_(mu, g, alpha=1.0 - b1)
     torch._foreach_mul_(nu, b2)
     torch._foreach_addcmul_(nu, g, g, value=1.0 - b2)
-    mu_hat = torch._foreach_div(mu, 1.0 - b1 ** t)
-    denom = torch._foreach_div(nu, 1.0 - b2 ** t)
+    if torch.is_tensor(t):          # one count per member of a stack
+        c1 = 1.0 - torch.pow(b1, t.to(torch.float64))
+        c2 = 1.0 - torch.pow(b2, t.to(torch.float64))
+        col = lambda c, x: c.to(x.dtype).reshape((-1,) + (1,) * (x.dim()
+                                                                 - 1))
+        mu_hat = [m / col(c1, m) for m in mu]
+        denom = [v / col(c2, v) for v in nu]
+    else:
+        mu_hat = torch._foreach_div(mu, 1.0 - b1 ** t)
+        denom = torch._foreach_div(nu, 1.0 - b2 ** t)
     torch._foreach_sqrt_(denom)
     torch._foreach_add_(denom, eps)
     upd = torch._foreach_div(mu_hat, denom)

@@ -22,6 +22,10 @@ Semantics:
   where ``done``), so every grid cell is a valid sample; episode ends are
   recorded in ``dones`` for the done-aware return / GAE scans.
 
+An external host env behind a ``GymEnv`` (gymnasium style, no functional
+API) is sampled on the host one episode at a time by ``sample_paths`` and
+``sample_data_batch``, the policy forward on the policy's device.
+
 ``mesh`` is not ported yet (ROADMAP.md M11).
 """
 
@@ -167,10 +171,55 @@ def num_traj_for_samples(num_samples, horizon):
 
 
 def _functional_env(env):
-    """Accept either a functional env or a GymEnv wrapper."""
+    """Accept either a functional env or a GymEnv wrapper (a GymEnv around
+    an external host env is kept: it has no functional env)."""
+    if getattr(env, "_external", False):
+        return env
     if hasattr(env, "env") and hasattr(env.env, "reset"):
         return env.env
     return env
+
+
+def _host_paths(num_traj, env, policy, eval_mode, horizon, base_seed,
+                generator):
+    """``num_traj`` episodes of a GymEnv around an external host env, one
+    at a time: the env steps on the host, the policy's forward runs on its
+    device (noise from ``generator``, on that device).  A path ends at the
+    horizon or where the env reports done; ``terminated`` is set only by
+    the env's own termination, never by its time limit (a truncated path
+    is bootstrapped from its last value like one cut at the horizon)."""
+    params, transforms, cfg = _policy_parts(policy)
+    dev = params["log_std"].device
+    dtype = params["log_std"].dtype
+    if generator is None:
+        generator = make_generator(0 if base_seed is None else base_seed,
+                                   dev)
+    T = env.horizon if horizon is None or horizon >= 1e6 else int(horizon)
+    paths = []
+    for k in range(num_traj):
+        o = env.reset(seed=None if base_seed is None else base_seed + k)
+        obs, acts, rews, means = [], [], [], []
+        done = False
+        while len(rews) < T and not done:
+            with torch.no_grad():
+                a, info = cfg.act(params, transforms,
+                                  torch.as_tensor(o, dtype=dtype,
+                                                  device=dev)[None],
+                                  generator)
+            a = (info["mean"] if eval_mode else a)[0].cpu().numpy()
+            obs.append(o)
+            acts.append(a)
+            means.append(info["mean"][0].cpu().numpy())
+            o, r, done, _ = env.step(a)
+            rews.append(r)
+        log_std = _to_numpy(params["log_std"]).reshape(-1)
+        paths.append(dict(
+            observations=np.array(obs), actions=np.array(acts),
+            rewards=np.array(rews),
+            agent_infos={"mean": np.array(means), "log_std": log_std,
+                         "evaluation": np.array(means)},
+            env_infos={}, terminated=bool(done) and env.terminated))
+    return paths
 
 
 def sample_paths(num_traj, env, policy, eval_mode=False, horizon=1e6,
@@ -178,6 +227,9 @@ def sample_paths(num_traj, env, policy, eval_mode=False, horizon=1e6,
     """Host-facing parity API -> list of path dicts.  ``num_cpu`` is
     accepted and ignored — batching replaces process parallelism."""
     env = _functional_env(env)
+    if getattr(env, "_external", False):
+        return _host_paths(num_traj, env, policy, eval_mode, horizon,
+                           base_seed, generator)
     if generator is None:
         generator = make_generator(0 if base_seed is None else base_seed,
                                    env.device)
@@ -194,15 +246,20 @@ def sample_data_batch(num_samples, env, policy, eval_mode=False, horizon=1e6,
     """'samples' mode parity API: keep collecting fixed-size batches until
     the total number of VALID steps reaches ``num_samples``."""
     fenv = _functional_env(env)
+    external = getattr(fenv, "_external", False)
     if generator is None:
-        generator = make_generator(0 if base_seed is None else base_seed,
-                                   fenv.device)
+        generator = make_generator(
+            0 if base_seed is None else base_seed,
+            _policy_parts(policy)[0]["log_std"].device if external
+            else fenv.device)
     T = fenv.horizon if horizon is None or horizon >= 1e6 else int(horizon)
     n = num_traj_for_samples(int(num_samples), T)
     paths, total = [], 0
-    for _ in range(100):  # safety bound
-        batch = sample_paths(n, fenv, policy, eval_mode, T,
-                             generator=generator)
+    for call in range(100):  # safety bound
+        batch = sample_paths(
+            n, fenv, policy, eval_mode, T, generator=generator,
+            base_seed=None if base_seed is None or not external
+            else base_seed + call * n)
         paths += batch
         total += sum(p["rewards"].shape[0] for p in batch)
         if total >= num_samples:

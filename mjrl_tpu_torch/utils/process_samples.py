@@ -3,14 +3,19 @@
 
 The training pipeline computes returns/GAE on batched tensors
 (``mjrl_tpu_torch.ops.gae``); these helpers provide the mjrl in-place
-path-dict API (numpy) for scripts.
+path-dict API (numpy) for scripts, through the native path ops
+(``mjrl_tpu_torch.native``, host C++).
 """
 
 import numpy as np
 
+from mjrl_tpu_torch import native
+
 
 def discount_sum(x, gamma, terminal=0.0):
     """Reverse discounted cumsum."""
+    if terminal == 0.0:
+        return native.discount_sums([np.asarray(x, np.float64)], gamma)[0]
     y = np.zeros_like(np.asarray(x, dtype=np.float64))
     run = terminal
     for t in range(len(x) - 1, -1, -1):
@@ -20,8 +25,10 @@ def discount_sum(x, gamma, terminal=0.0):
 
 
 def compute_returns(paths, gamma):
-    for path in paths:
-        path["returns"] = discount_sum(path["rewards"], gamma)
+    rets = native.discount_sums(
+        [np.asarray(p["rewards"], np.float64) for p in paths], gamma)
+    for path, r in zip(paths, rets):
+        path["returns"] = r
 
 
 def compute_advantages(paths, baseline, gamma, gae_lambda=None,
@@ -34,11 +41,14 @@ def compute_advantages(paths, baseline, gamma, gae_lambda=None,
             path["advantages"] = path["returns"] - path["baseline"]
     else:
         for path in paths:
-            b = path["baseline"] = np.asarray(baseline.predict(path))
-            terminal = 0.0 if path.get("terminated", False) else b[-1]
-            b1 = np.append(b, terminal)
-            td_deltas = path["rewards"] + gamma * b1[1:] - b1[:-1]
-            path["advantages"] = discount_sum(td_deltas, gamma * gae_lambda)
+            path["baseline"] = np.asarray(baseline.predict(path))
+        advs = native.gae_advantages(
+            [np.asarray(p["rewards"], np.float64) for p in paths],
+            [np.asarray(p["baseline"], np.float64) for p in paths],
+            [bool(p.get("terminated", False)) for p in paths],
+            gamma, gae_lambda)
+        for path, a in zip(paths, advs):
+            path["advantages"] = a
     if normalize:
         alladv = np.concatenate([p["advantages"] for p in paths])
         mean_adv, std_adv = alladv.mean(), alladv.std()

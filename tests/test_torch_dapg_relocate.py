@@ -121,5 +121,5 @@ def test_dapg_relocate_example_small():
     for k in ("bc_return", "final_return"):
         assert np.isfinite(out[k]), k
     assert np.isfinite(out["policy"].get_param_values()).all()
-    with pytest.raises(NotImplementedError, match="M12"):
+    with pytest.raises(NotImplementedError, match="cross_eval_relocate"):
         mod.main(["--device", "cpu", "--cross_eval_episodes", "1"])

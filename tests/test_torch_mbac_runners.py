@@ -10,6 +10,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 from mjrl_tpu_torch.algos import MBAC
 from mjrl_tpu_torch.algos.model_accel.run_experiments import (
@@ -76,8 +77,12 @@ def test_mbac_defaults_and_refusals():
         (10, 25, 10.0, 1.0)
     sigma, b0, b1, b2 = actor.filter_coefs
     assert np.all(sigma == 1.0) and (b0, b1, b2) == (0.05, 0.0, 0.0)
-    with pytest.raises(NotImplementedError, match="optimizer"):
-        MBAC("mjrl_point_mass-v0", pol, optimizer=object(), device="cpu")
+    # a custom optimizer: a factory, as BC takes it (held to the JAX BC
+    # with optax.sgd in test_torch_optimize_model.py)
+    custom = MBAC("mjrl_point_mass-v0", pol, device="cpu",
+                  optimizer=lambda ps: torch.optim.SGD(ps, lr=1e-2))
+    assert isinstance(custom._torch_opt, torch.optim.SGD)
+    assert not hasattr(custom, "opt_state")
 
 
 def tiny_model_accel_job(env="point_mass"):
@@ -138,7 +143,9 @@ def test_model_accel_runner_on_the_reacher_and_cli(tmp_path):
     assert logger.log["num_samples"] == [50]
     assert "rollout_metric" not in logger.log
     assert np.isfinite(logger.log["eval_score"][0])
-    with pytest.raises(NotImplementedError, match="M12"):
+    # env_factory names a module to import (test_torch_external_env.py
+    # runs the runner through one)
+    with pytest.raises(ModuleNotFoundError, match="'a'"):
         run_model_accel_npg.run(str(tmp_path / "x"),
                                 {**job, "env_factory": "a:b"}, device="cpu")
 

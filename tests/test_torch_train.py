@@ -219,7 +219,7 @@ def test_entry_point_without_a_card_raises(monkeypatch, name):
         ENTRY_POINTS[name]()
 
 
-def test_gym_env_api():
+def test_gym_env_api(tmp_path):
     e = GymEnv("mjrl_swimmer-v0", device="cpu", act_repeat=2)
     assert (e.observation_dim, e.action_dim, e.horizon) == (12, 4, 250)
     assert e.spec.horizon == 250 and e.env_id == "mjrl_swimmer-v0"
@@ -248,9 +248,20 @@ def test_gym_env_api():
     assert not masked.reset(seed=3)[:5].any()
     clone = pickle.loads(pickle.dumps(e))
     assert clone.reset(seed=3).shape == (12,)
-    for fn in (e.render, e.visualize_policy):
-        with pytest.raises(NotImplementedError, match="M12"):
-            fn()
+    # offscreen rendering: an episode of 4 steps of the mean action (its
+    # qpos sequence, and its GIF and one frame of the current state where
+    # matplotlib and PIL are present)
+    from mjrl_tpu_torch.utils.render import (drawing_available,
+                                            visualize_policy)
+    policy = MLP(e.spec, hidden_sizes=HID, device="cpu")
+    vis = tmp_path / "vis"
+    drawn, _ = drawing_available()
+    assert visualize_policy(e, policy, horizon=4, save_dir=str(vis),
+                            video_format="gif") == (5 if drawn else 0)
+    assert np.load(vis / "episode_0_qpos.npy").shape == (5, 7)
+    if drawn:
+        img = e.render()
+        assert img.dtype == np.uint8 and img.ndim == 3 and img.shape[2] == 3
 
 
 def test_evaluate_policy():
