@@ -187,6 +187,35 @@ seconds and its launches of K1 and K2:
 41. examples_m12  examples/torch_{point_mass_smoke,linear_nn_comparison,
             visualizer_smoke}.py with their counts cut (each cut printed).
 
+Data parallelism over ranks (M11: mjrl_tpu_torch/parallel/), each phase
+printing its seconds and its launches of K1 and K2 (per rank):
+
+42. m11_world1_hopper  an NCCL group of world size 1 in this process:
+            Hopper-v3 NPG (64-64, LinearBaseline) at 4096 x 1000, one
+            iteration through NPG(..., mesh=make_mesh()): 1000 K2 launches,
+            none of K1; its statistics and parameters against the unsharded
+            agent's iteration from the same seed (1e-6 relative, float32).
+43. m11_two_ranks_hopper  two fresh processes of this script
+            (``--m11-rank``), a gloo group over CUDA tensors on the one
+            card (NCCL refuses two ranks on one card), each loading the
+            build phase's kernels and building none: the same iteration,
+            2048 rows and 1000 K2 launches per rank, one K2 launch on each
+            rank's rows held against the plain version; statistics and
+            parameters against the one-rank run at the JAX package's bounds
+            (rtol 1e-3 / atol 1e-3; rtol 1e-2 / atol 1e-3), and what the
+            update moves (alpha, kl_dist, the norm of the parameters'
+            change) at rtol 1e-2, the step's size printed beside it.
+44. m11_two_ranks_swimmer_ppo  swimmer_ppo.json (PPO + MLPBaseline, the
+            minibatch gradients all-reduced) on the two ranks, one
+            iteration: 500 K1 launches per rank, the same bounds (kl_dist
+            and the step's norm; PPO's alpha is its learning rate).
+45. m11_ensemble  a 4-member WorldModelEnsemble (float64) fitted and
+            queried on the two ranks, two members each, against one rank
+            (1e-10); then the seconds per iteration at one rank, at world
+            size 1 and on two ranks, with the collectives' count and time.
+            Two ranks on one card measure correctness and overhead, not
+            scaling.  The pair has 300 s; a failing rank stops the other.
+
 Each phase's launches are counted from just before it to just after.  The
 last line is {"ok": true, "device": {...}}.
 """
@@ -2731,6 +2760,423 @@ def phase_examples_m12():
     return total
 
 
+# ---------------------------------------------------------------------------
+# M11: data parallelism over ranks (mjrl_tpu_torch/parallel/)
+# ---------------------------------------------------------------------------
+
+M11_RANKS = 2
+M11_TIMEOUT_S = 300
+M11_GROUP_TIMEOUT_S = 120
+# a sharded against an unsharded step: the JAX package's own bounds
+# (tests/test_parallel.py), (rtol, atol)
+M11_STATS_BOUND, M11_PARAMS_BOUND = (1e-3, 1e-3), (1e-2, 1e-3)
+M11_UPDATE_RTOL = 1e-2
+M11_ENSEMBLE = dict(num_models=4, state_dim=11, act_dim=3, n=4096,
+                    hidden=(64, 64), mb=256, epochs=2)
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def rel_diff(a, b):
+    """max |a - b| over max |b|: the largest difference relative to the
+    quantity's scale."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+
+
+def within(a, b, bound):
+    rtol, atol = bound
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return bool(np.all(np.abs(a - b) <= atol + rtol * np.abs(b)))
+
+
+def update_step(params, params0):
+    """The size of one update: the norm and the largest entry of the
+    parameters' change."""
+    d = np.asarray(params, np.float64) - np.asarray(params0, np.float64)
+    return {"step_norm": float(np.linalg.norm(d)),
+            "step_max_abs": float(np.abs(d).max())}
+
+
+def m11_hopper_iteration(mesh=None):
+    """One Hopper-v3 NPG iteration at 4096 x 1000 (64-64 policy,
+    LinearBaseline) through NPG(..., mesh=mesh), seed 21."""
+    e = GymEnv("Hopper-v3")
+    policy = MLP(e.spec, hidden_sizes=(64, 64), seed=21)
+    agent = NPG(e, policy, LinearBaseline(e.spec), normalized_step_size=0.05,
+                seed=21, save_logs=True, mesh=mesh)
+    c0 = 0 if mesh is None else mesh.collectives
+    s0 = 0.0 if mesh is None else mesh.collective_seconds
+    params0 = agent.policy.get_param_values()
+    t0 = time.time()
+    stats = agent.train_step(N=NUM_ENVS, horizon=HOPPER_HORIZON,
+                             gamma=0.995, gae_lambda=0.97)
+    torch.cuda.synchronize()
+    log = {k: v[-1] for k, v in agent.logger.log.items()}
+    params = agent.policy.get_param_values()
+    return {"stats": stats[:4], "seconds": time.time() - t0,
+            "params": params.tolist(),
+            "update": {"alpha": log["alpha"], "kl_dist": log["kl_dist"],
+                       **update_step(params, params0)},
+            "num_samples": log["num_samples"], "kl_dist": log["kl_dist"],
+            "time_sampling": log["time_sampling"],
+            "time_npg": log["time_npg"], "time_VF": log["time_VF"],
+            "collectives": 0 if mesh is None else mesh.collectives - c0,
+            "collective_seconds": 0.0 if mesh is None
+            else mesh.collective_seconds - s0}
+
+
+def m11_swimmer_ppo_iteration(mesh=None):
+    """One iteration of examples/example_configs/swimmer_ppo.json (PPO +
+    MLPBaseline, 10 x 500) built by the job script's build_agent, with the
+    mesh passed through the config's alg_hyper_params."""
+    job = load_config(os.path.join(EXAMPLES, "example_configs",
+                                   "swimmer_ppo.json"))
+    job["alg_hyper_params"] = {**job["alg_hyper_params"], "mesh": mesh}
+    agent = job_script().build_agent(job)
+    c0 = 0 if mesh is None else mesh.collectives
+    s0 = 0.0 if mesh is None else mesh.collective_seconds
+    params0 = agent.policy.get_param_values()
+    t0 = time.time()
+    stats = agent.train_step(N=job["rl_num_traj"],
+                             sample_mode=job["sample_mode"],
+                             gamma=job["rl_gamma"],
+                             gae_lambda=job["rl_gae"])
+    torch.cuda.synchronize()
+    log = {k: v[-1] for k, v in agent.logger.log.items()}
+    params = agent.policy.get_param_values()
+    return {"stats": stats[:4], "seconds": time.time() - t0,
+            "params": params.tolist(),
+            "update": {"kl_dist": log["kl_dist"],
+                       **update_step(params, params0)},
+            "num_samples": log["num_samples"], "t_opt": log["t_opt"],
+            "time_VF": log["time_VF"],
+            "ppo_adam_steps": int(agent.opt_state["count"]),
+            "collectives": 0 if mesh is None else mesh.collectives - c0,
+            "collective_seconds": 0.0 if mesh is None
+            else mesh.collective_seconds - s0}
+
+
+def m11_ensemble(mesh=None):
+    """A 4-member WorldModelEnsemble at float64 on the card: fit_dynamics
+    (drawn permutations) and predict_all on numpy-seeded data."""
+    from mjrl_tpu_torch.algos.model_accel.nn_dynamics import \
+        WorldModelEnsemble
+    c = M11_ENSEMBLE
+    rng = np.random.RandomState(0)
+    s = rng.normal(size=(c["n"], c["state_dim"]))
+    a = rng.normal(size=(c["n"], c["act_dim"]))
+    sp = s + 0.1 * np.tanh(a @ rng.normal(size=(c["act_dim"],
+                                                c["state_dim"])))
+    ens = WorldModelEnsemble(c["num_models"], c["state_dim"], c["act_dim"],
+                             seed=7, hidden_size=c["hidden"],
+                             dtype=torch.float64, mesh=mesh)
+    t0 = time.time()
+    losses = ens.fit_dynamics(s, a, sp, c["mb"], c["epochs"])
+    pred = ens.predict_all(s[:256], a[:256])
+    torch.cuda.synchronize()
+    params = torch.cat([v.reshape(-1) for v in ens._dyn["params"].values()])
+    return {"losses": np.asarray(losses).tolist(),
+            "params": params.cpu().numpy().tolist(),
+            "predict_all": pred.cpu().numpy().tolist(),
+            "seconds": time.time() - t0}
+
+
+def m11_contact_launch_check(mesh):
+    """One launch of K2 on this rank's rows of a 4096-row Hopper reset (the
+    policy's mean actions) against the plain version on the same inputs,
+    at the float32 bounds of the kernels phase -> max abs errors."""
+    env = HopperEnv()
+    policy = MLP(env.spec, hidden_sizes=(64, 64), seed=21)
+    s = env.reset(NUM_ENVS, make_generator(3, env.device), mesh=mesh)
+    with torch.no_grad():
+        u = policy.config.dist_info(policy.params, policy.transforms,
+                                    s.obs)[0].contiguous()
+    q, v = s.physics.qpos.contiguous(), s.physics.qvel.contiguous()
+    gq, gv = cuda_planar.cuda_step_n_batched(env._planar, q, v, u,
+                                             env.frame_skip)
+    rq, rv = step_n_arrays(env._planar, q, v, u, env.frame_skip)
+    torch.cuda.synchronize()
+    tol_q, tol_v = CONTACT_TOL[torch.float32]
+    torch.testing.assert_close(gq, rq, rtol=tol_q, atol=tol_q)
+    torch.testing.assert_close(gv, rv, rtol=tol_v,
+                               atol=tol_v * max(1.0, rv.abs().max().item()))
+    return {"rows": int(q.shape[0]), "max_abs_err_q": (gq - rq).abs().max()
+            .item(), "max_abs_err_v": (gv - rv).abs().max().item(),
+            "tolerance": [tol_q, tol_v]}
+
+
+def m11_worker(rank, world, init_method, out_path):
+    """One rank of the two-rank phases (run as ``chip_smoke.py --m11-rank
+    R ...``): a gloo group over CUDA tensors on the one card; the kernels
+    come from the build phase's libraries."""
+    import datetime
+    import torch.distributed as dist
+    from mjrl_tpu_torch.parallel import make_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group(
+        "gloo", init_method=init_method, world_size=world, rank=rank,
+        timeout=datetime.timedelta(seconds=M11_GROUP_TIMEOUT_S))
+    mesh = make_mesh()
+    res = {"rank": rank, "mesh": repr(mesh)}
+    built = {name: cuda_planar.kernel_build_info(env._planar)
+             ["build_seconds"] for name, env in
+             (("hopper", HopperEnv()), ("swimmer", SwimmerEnv()))}
+    if any(built.values()):
+        raise AssertionError(f"rank {rank} built a kernel: {built}")
+    for name, fn in (("hopper", m11_hopper_iteration),
+                     ("swimmer_ppo", m11_swimmer_ppo_iteration)):
+        out, counts, seconds = run_counted(lambda: fn(mesh))
+        res[name] = {**out, "kernel_launches": counts,
+                     "counted_seconds": seconds}
+    res["contact_check"] = m11_contact_launch_check(mesh)
+    res["ensemble"] = m11_ensemble(mesh)
+    dist.barrier()
+    dist.destroy_process_group()
+    with open(out_path, "w") as f:
+        json.dump(res, f)
+
+
+def run_m11_ranks(tmp):
+    """Two fresh processes of this script, one per rank, on the one card;
+    the first to fail (or the deadline) stops the other -> results."""
+    init = "file://" + os.path.join(tmp, "group_init")
+    outs = [os.path.join(tmp, f"rank{r}.json") for r in range(M11_RANKS)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--m11-rank", str(r),
+         "--m11-world", str(M11_RANKS), "--m11-init", init, "--m11-out",
+         outs[r]], cwd=HERE, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(M11_RANKS)]
+    deadline = time.time() + M11_TIMEOUT_S
+    try:
+        while any(p.poll() is None for p in procs):
+            if any(p.poll() not in (None, 0) for p in procs) \
+                    or time.time() > deadline:
+                break
+            time.sleep(0.1)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    logs = [p.communicate()[0] for p in procs]
+    for r, p in enumerate(procs):
+        if p.returncode != 0:
+            print("\n".join(f"--- rank {i} ---\n{log[-6000:]}"
+                            for i, log in enumerate(logs)), file=sys.stderr)
+            raise AssertionError(f"rank {r} of {M11_RANKS} failed (rc "
+                                 f"{p.returncode}) or the pair passed "
+                                 f"{M11_TIMEOUT_S} s")
+    res = []
+    for path in outs:
+        with open(path) as f:
+            res.append(json.load(f))
+    return res
+
+
+def phase_m11_world1_hopper():
+    """An NCCL group of world size 1 in this process: Hopper-v3 NPG at
+    4096 x 1000 through NPG(..., mesh=make_mesh()), one iteration, against
+    the unsharded agent's iteration from the same seed -> (unsharded
+    result, sharded result, K2 launches)."""
+    import datetime
+    import torch.distributed as dist
+    from mjrl_tpu_torch.parallel import make_mesh
+    ref, ref_counts, _ = run_counted(lambda: m11_hopper_iteration(None))
+    dist.init_process_group(
+        "nccl", init_method=f"tcp://127.0.0.1:{free_port()}", world_size=1,
+        rank=0, timeout=datetime.timedelta(seconds=M11_GROUP_TIMEOUT_S))
+    try:
+        mesh = make_mesh()
+        got, counts, _ = run_counted(lambda: m11_hopper_iteration(mesh))
+    finally:
+        dist.destroy_process_group()
+    want = {CONTACT: HOPPER_HORIZON, SMOOTH: 0}
+    if counts != want or ref_counts != want:
+        raise AssertionError(f"m11_world1_hopper: launched {counts} "
+                             f"(unsharded {ref_counts}), expected {want}")
+    diffs = {k: rel_diff(got[k], ref[k]) for k in ("stats", "params")}
+    diffs["update"] = rel_diff(list(got["update"].values()),
+                               list(ref["update"].values()))
+    bound = 1e-6
+    if not max(diffs.values()) <= bound or got["collectives"] == 0:
+        raise AssertionError(f"m11_world1_hopper: sharded against "
+                             f"unsharded {diffs} (bound {bound}), "
+                             f"{got['collectives']} collectives")
+    emit({"phase": "m11_world1_hopper", "backend": "nccl", "world": 1,
+          "num_envs": NUM_ENVS, "horizon": HOPPER_HORIZON,
+          "kernel_launches": counts, "max_rel_diff": diffs, "bound": bound,
+          "seconds_unsharded": ref["seconds"], "seconds": got["seconds"],
+          "collectives": got["collectives"],
+          "collective_seconds": got["collective_seconds"],
+          "stats": got["stats"], "kl_dist": got["kl_dist"]})
+    return ref, got, counts
+
+
+def m11_compare(phase, rank_res, ref):
+    """Every rank against the one-rank run: statistics and parameters at
+    the JAX package's bounds, and what the update moves (alpha, kl_dist,
+    the norm of the parameters' change) at rtol M11_UPDATE_RTOL, since the
+    statistics are the pre-update rollout's and a step wrong by tens of
+    per cent can stay inside the parameters' atol -> the measured
+    differences, with the one-rank step's size beside its bound."""
+    diffs = {"stats_max_abs": 0.0, "params_max_abs": 0.0,
+             "stats_rel": 0.0, "params_rel": 0.0,
+             **{f"{k}_rel": 0.0 for k in ref["update"]}}
+    for r in rank_res:
+        got = r[phase]
+        if not (within(got["stats"], ref["stats"], M11_STATS_BOUND)
+                and within(got["params"], ref["params"], M11_PARAMS_BOUND)):
+            raise AssertionError(
+                f"{phase}: rank {r['rank']} stats {got['stats']} against "
+                f"{ref['stats']}, params off by "
+                f"{rel_diff(got['params'], ref['params'])}")
+        for k, want in ref["update"].items():
+            d = abs(got["update"][k] - want) / max(abs(want), 1e-30)
+            if not d <= M11_UPDATE_RTOL:
+                raise AssertionError(
+                    f"{phase}: rank {r['rank']} {k} {got['update'][k]} "
+                    f"against {want} (rtol {M11_UPDATE_RTOL})")
+            diffs[f"{k}_rel"] = max(diffs[f"{k}_rel"], d)
+        for k in ("stats", "params"):
+            a, b = np.asarray(got[k]), np.asarray(ref[k])
+            diffs[f"{k}_max_abs"] = max(diffs[f"{k}_max_abs"],
+                                        float(np.abs(a - b).max()))
+            diffs[f"{k}_rel"] = max(diffs[f"{k}_rel"], rel_diff(a, b))
+    if rank_res[0][phase]["params"] != rank_res[1][phase]["params"]:
+        raise AssertionError(f"{phase}: the ranks' policies differ")
+    diffs["one_rank_update"] = ref["update"]
+    diffs["params_atol_over_step_max_abs"] = \
+        M11_PARAMS_BOUND[1] / max(ref["update"]["step_max_abs"], 1e-30)
+    return diffs
+
+
+def phase_m11_two_ranks(hopper_ref):
+    """Two ranks (fresh processes, gloo over CUDA tensors, one card):
+    Hopper NPG, swimmer_ppo.json and a 4-member ensemble against the
+    one-rank runs of this process -> {phase: per-rank launches}."""
+    ppo_ref, ppo_counts, _ = run_counted(lambda: m11_swimmer_ppo_iteration())
+    ens_ref = m11_ensemble()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.time()
+        ranks = run_m11_ranks(tmp)
+        pair_s = time.time() - t0
+    launches = {}
+    # Hopper: 2048 rows and 1000 K2 launches per rank
+    want = {CONTACT: HOPPER_HORIZON, SMOOTH: 0}
+    for r in ranks:
+        if r["hopper"]["kernel_launches"] != want:
+            raise AssertionError(f"m11_two_ranks_hopper: rank {r['rank']} "
+                                 f"launched {r['hopper']['kernel_launches']}")
+        if r["contact_check"]["rows"] != NUM_ENVS // M11_RANKS:
+            raise AssertionError("m11_two_ranks_hopper: the K2 check took "
+                                 f"{r['contact_check']['rows']} rows")
+    diffs = m11_compare("hopper", ranks, hopper_ref)
+    emit({"phase": "m11_two_ranks_hopper", "backend": "gloo",
+          "world": M11_RANKS, "rows_per_rank": NUM_ENVS // M11_RANKS,
+          "horizon": HOPPER_HORIZON,
+          "kernel_launches": [r["hopper"]["kernel_launches"] for r in ranks],
+          "k2_against_plain": [r["contact_check"] for r in ranks],
+          "diff_to_one_rank": diffs, "bounds": {
+              "stats": M11_STATS_BOUND, "params": M11_PARAMS_BOUND,
+              "update_rtol": M11_UPDATE_RTOL},
+          "seconds": [r["hopper"]["seconds"] for r in ranks],
+          "collectives": [r["hopper"]["collectives"] for r in ranks],
+          "collective_seconds": [r["hopper"]["collective_seconds"]
+                                 for r in ranks],
+          "num_samples": [r["hopper"]["num_samples"] for r in ranks]})
+    launches["m11_two_ranks_hopper"] = [
+        r["hopper"]["kernel_launches"] for r in ranks]
+    # swimmer_ppo.json: 5 rows and 500 K1 launches per rank
+    want = {SMOOTH: HORIZON, CONTACT: 0}
+    if ppo_counts != want:
+        raise AssertionError(f"m11_two_ranks_swimmer_ppo: one rank "
+                             f"launched {ppo_counts}")
+    for r in ranks:
+        if r["swimmer_ppo"]["kernel_launches"] != want:
+            raise AssertionError(
+                f"m11_two_ranks_swimmer_ppo: rank {r['rank']} launched "
+                f"{r['swimmer_ppo']['kernel_launches']}")
+        if r["swimmer_ppo"]["ppo_adam_steps"] != ppo_ref["ppo_adam_steps"]:
+            raise AssertionError("m11_two_ranks_swimmer_ppo: Adam steps "
+                                 f"{r['swimmer_ppo']['ppo_adam_steps']}")
+    diffs = m11_compare("swimmer_ppo", ranks, ppo_ref)
+    emit({"phase": "m11_two_ranks_swimmer_ppo", "config": "swimmer_ppo.json",
+          "backend": "gloo", "world": M11_RANKS,
+          "kernel_launches": [r["swimmer_ppo"]["kernel_launches"]
+                              for r in ranks],
+          "diff_to_one_rank": diffs, "bounds": {
+              "stats": M11_STATS_BOUND, "params": M11_PARAMS_BOUND,
+              "update_rtol": M11_UPDATE_RTOL},
+          "ppo_adam_steps": ppo_ref["ppo_adam_steps"],
+          "seconds_one_rank": ppo_ref["seconds"],
+          "seconds": [r["swimmer_ppo"]["seconds"] for r in ranks],
+          "t_opt": [r["swimmer_ppo"]["t_opt"] for r in ranks],
+          "t_opt_one_rank": ppo_ref["t_opt"],
+          "collectives": [r["swimmer_ppo"]["collectives"] for r in ranks],
+          "collective_seconds": [r["swimmer_ppo"]["collective_seconds"]
+                                 for r in ranks]})
+    launches["m11_two_ranks_swimmer_ppo"] = [
+        r["swimmer_ppo"]["kernel_launches"] for r in ranks]
+    # the ensemble, float64
+    ens = {k: max(rel_diff(r["ensemble"][k], ens_ref[k]) for r in ranks)
+           for k in ("losses", "params", "predict_all")}
+    bound = 1e-10
+    if not max(ens.values()) <= bound:
+        raise AssertionError(f"m11_ensemble: two ranks against one {ens}")
+    emit({"phase": "m11_ensemble", "world": M11_RANKS, **M11_ENSEMBLE,
+          "dtype": "float64", "max_rel_diff": ens, "bound": bound,
+          "seconds_one_rank": ens_ref["seconds"],
+          "seconds": [r["ensemble"]["seconds"] for r in ranks]})
+    launches["m11_ensemble"] = [NO_LAUNCHES, NO_LAUNCHES]
+    return launches, ranks, ppo_ref, pair_s
+
+
+def phase_m11(kernel, contact):
+    """The M11 block: world size 1 over NCCL, then two ranks over gloo;
+    adds each phase's launches to the kernels' launches_by_path."""
+    phase_seconds = {}
+    t0 = time.time()
+    hopper_ref, world1, counts = phase_m11_world1_hopper()
+    phase_seconds["m11_world1_hopper"] = time.time() - t0
+    kernel["launches_by_path"]["m11_world1_hopper"] = counts[SMOOTH]
+    contact["launches_by_path"]["m11_world1_hopper"] = counts[CONTACT]
+    t0 = time.time()
+    launches, ranks, ppo_ref, pair_s = phase_m11_two_ranks(hopper_ref)
+    phase_seconds["m11_two_ranks"] = time.time() - t0
+    for name, per_rank in launches.items():
+        kernel["launches_by_path"][name] = [c[SMOOTH] for c in per_rank]
+        contact["launches_by_path"][name] = [c[CONTACT] for c in per_rank]
+    per_rank = lambda k, f: [r[k][f] for r in ranks]
+    emit({"phase": "m11_timing",
+          "note": "the two ranks share one card: their times measure "
+                  "correctness and overhead, not scaling",
+          "hopper_seconds_per_iteration": {
+              "one_rank": hopper_ref["seconds"],
+              "world1_nccl": world1["seconds"],
+              "two_ranks_gloo": per_rank("hopper", "seconds")},
+          "hopper_collectives_per_iteration": {
+              "world1_nccl": world1["collectives"],
+              "two_ranks_gloo": per_rank("hopper", "collectives")},
+          "hopper_collective_seconds_per_iteration": {
+              "world1_nccl": world1["collective_seconds"],
+              "two_ranks_gloo": per_rank("hopper", "collective_seconds")},
+          "swimmer_ppo_seconds_per_iteration": {
+              "one_rank": ppo_ref["seconds"],
+              "two_ranks_gloo": per_rank("swimmer_ppo", "seconds")},
+          "swimmer_ppo_collectives_per_iteration":
+              per_rank("swimmer_ppo", "collectives"),
+          "swimmer_ppo_collective_seconds_per_iteration":
+              per_rank("swimmer_ppo", "collective_seconds"),
+          "two_rank_processes_seconds": pair_s})
+    emit({"phase": "m11", "phase_seconds": phase_seconds,
+          "seconds": sum(phase_seconds.values())})
+
+
 def main():
     t_start = time.time()
     phase = "device"
@@ -2862,6 +3308,9 @@ def main():
             contact["launches_by_path"][phase] = counts[CONTACT]
         emit({"phase": "m12", "phase_seconds": phase_seconds,
               "seconds": sum(phase_seconds.values())})
+        # M11: data parallelism over ranks
+        phase = "m11"
+        phase_m11(kernel, contact)
     except Exception:
         traceback.print_exc()
         print(f"chip_smoke: phase '{phase}' failed", file=sys.stderr)
@@ -2876,4 +3325,14 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if "--m11-rank" in sys.argv:           # one rank of the M11 phases
+        import argparse
+        ap = argparse.ArgumentParser()
+        for name, typ in (("--m11-rank", int), ("--m11-world", int),
+                          ("--m11-init", str), ("--m11-out", str)):
+            ap.add_argument(name, type=typ, required=True)
+        args = ap.parse_args()
+        m11_worker(args.m11_rank, args.m11_world, args.m11_init,
+                   args.m11_out)
+    else:
+        main()

@@ -19,8 +19,16 @@ every grid cell is a sample; processing then takes the done-aware return /
 GAE scans.  Subclasses with a persistent optimizer (PPO) set
 ``_has_opt_state`` and keep ``self.opt_state``; their ``_update_core``
 takes and returns it.
+
+``mesh=`` (``parallel/mesh.py``) splits ``train_step``'s batch over the
+ranks of a process group: each rank rolls out its rows, and the whitening,
+the update, the baseline fit and the logged statistics reduce over all
+ranks, so every rank takes the one-rank step.  Data that every rank holds
+alike (``train_from_paths``, a model's imagined batch) takes the
+unreduced path.
 """
 
+import functools
 import time as timer
 
 import numpy as np
@@ -32,6 +40,7 @@ from mjrl_tpu_torch.ops.flat import tree_to
 from mjrl_tpu_torch.ops.gae import (discounted_returns, gae_advantages,
                                     gae_with_dones, returns_with_dones,
                                     whiten)
+from mjrl_tpu_torch.parallel.mesh import all_reduce_sum, gather_rows
 from mjrl_tpu_torch.samplers.rollout import (num_traj_for_samples,
                                              rollout_batch)
 from mjrl_tpu_torch.utils.logger import DataLog
@@ -69,9 +78,8 @@ class BatchREINFORCE:
         self.generator = make_generator(self.seed, self.device)
         if save_logs:
             self.logger = DataLog()
-        if kwargs.get("mesh", None) is not None:
-            raise NotImplementedError(
-                "sharded training is not ported (ROADMAP.md M11)")
+        # optional Mesh: train_step's batch split over its ranks
+        self.mesh = kwargs.get("mesh", None)
         self.autoreset = bool(kwargs.get("autoreset", False))
         self._has_opt_state = False
 
@@ -111,7 +119,9 @@ class BatchREINFORCE:
             hasattr(self.env.env, "reset") else self.env
 
     # -- phases ------------------------------------------------------------
-    def _get_phases(self, num_traj, T, gamma, gae_lambda):
+    def _get_phases(self, num_traj, T, gamma, gae_lambda, mesh=None):
+        """The four phases of an iteration; under ``mesh`` the rollout
+        holds this rank's rows and the rest reduces over the ranks."""
         fenv = self.fenv
         pol = self.policy.config
         bl = self.baseline.cfg
@@ -121,7 +131,7 @@ class BatchREINFORCE:
         def rollout_fn(params, transforms, generator):
             return rollout_batch(fenv, pol, params, transforms, generator,
                                  num_traj=num_traj, horizon=T,
-                                 autoreset=autoreset)
+                                 autoreset=autoreset, mesh=mesh)
 
         @torch.no_grad()
         def process(bl_state, batch):
@@ -139,7 +149,7 @@ class BatchREINFORCE:
                 else:
                     adv = gae_with_dones(rewards, values, dones, v_last,
                                          gamma, gae_lambda)
-                adv_flat = whiten(adv.reshape(-1))
+                adv_flat = whiten(adv.reshape(-1), mesh=mesh)
                 # per-episode mean return: total reward / episode count
                 n_eps = torch.clamp(torch.sum(dones, dim=1), min=1.0)
                 path_returns = torch.sum(rewards, dim=1) / n_eps
@@ -151,41 +161,45 @@ class BatchREINFORCE:
             else:
                 adv = gae_advantages(rewards, values, gamma, gae_lambda,
                                      batch["terminated"], mask)
-            adv_flat = whiten(adv.reshape(-1), mask.reshape(-1))
+            adv_flat = whiten(adv.reshape(-1), mask.reshape(-1), mesh=mesh)
             path_returns = torch.sum(rewards * mask, dim=1)
             return returns, adv_flat, path_returns
 
-        fit_fn = torch.no_grad()(self.baseline.fit_state)
+        fit_fn = torch.no_grad()(functools.partial(self.baseline.fit_state,
+                                                   mesh=mesh))
 
         return rollout_fn, process, self._update_core, fit_fn
 
     # -- algorithm core (overridden by subclasses) -----------------------
     def _update_core(self, params, transforms, obs, act, adv, mask,
-                     generator):
+                     generator, mesh=None):
         """REINFORCE ascent step, optional KL-targeted halving line search.
-        Returns (new_params, stats dict)."""
+        Returns (new_params, stats dict).  ``mesh``: the rows are this
+        rank's, and every mean reduces over the ranks."""
         pol = self.policy.config
         with torch.no_grad():
             surr_before = F.cpi_surrogate(pol, params, params, transforms,
-                                          obs, act, adv, mask)
-        g = F.vpg_grad(pol, params, params, transforms, obs, act, adv, mask)
+                                          obs, act, adv, mask, mesh)
+        g = F.vpg_grad(pol, params, params, transforms, obs, act, adv, mask,
+                       mesh)
 
         with torch.no_grad():
             alpha = torch.as_tensor(self.alpha, dtype=obs.dtype,
                                     device=obs.device)
             if self.desired_kl is not None:
                 kl = F.mean_kl(pol, F.apply_step(pol, params, g, alpha),
-                               params, transforms, obs, mask)
+                               params, transforms, obs, mask, mesh)
                 it = 0
                 while bool(kl > self.desired_kl) and it < 100:
                     alpha = alpha / 2.0
                     kl = F.mean_kl(pol, F.apply_step(pol, params, g, alpha),
-                                   params, transforms, obs, mask)
+                                   params, transforms, obs, mask, mesh)
                     it += 1
             new_params = F.apply_step(pol, params, g, alpha)
             surr_after = F.cpi_surrogate(pol, new_params, params, transforms,
-                                         obs, act, adv, mask)
-            kl = F.mean_kl(pol, new_params, params, transforms, obs, mask)
+                                         obs, act, adv, mask, mesh)
+            kl = F.mean_kl(pol, new_params, params, transforms, obs, mask,
+                           mesh)
         stats = dict(alpha=alpha, surr_before=surr_before,
                      surr_after=surr_after, kl_dist=kl)
         return new_params, stats
@@ -209,8 +223,9 @@ class BatchREINFORCE:
             else num_traj_for_samples(N, T)
         self._last_gamma_lambda = (gamma, gae_lambda)
 
+        mesh = self.mesh
         rollout_fn, process_fn, update_fn, fit_fn = self._get_phases(
-            num_traj, T, gamma, gae_lambda)
+            num_traj, T, gamma, gae_lambda, mesh)
 
         # phase 1: sampling
         ts = timer.time()
@@ -222,14 +237,15 @@ class BatchREINFORCE:
 
         # phase 2: process + update
         eval_statistics = self._train_from_batch(
-            batch, process_fn, update_fn)
+            batch, process_fn, update_fn, mesh)
         eval_statistics.append(N)
         if self.save_logs:
-            self.logger.log_kv("num_samples", int(batch["mask"].sum()))
+            self.logger.log_kv("num_samples", int(all_reduce_sum(
+                batch["mask"].sum(), mesh)))
             if "dones" in batch:     # episodes ended + truncated row tails
                 d = batch["dones"]
-                self.logger.log_kv("num_episodes", int(d.sum())
-                                   + int((d[:, -1] == 0).sum()))
+                self.logger.log_kv("num_episodes", int(all_reduce_sum(
+                    d.sum() + (d[:, -1] == 0).sum(), mesh)))
 
         # phase 3: baseline fit on fresh returns
         ts = timer.time()
@@ -245,7 +261,9 @@ class BatchREINFORCE:
 
         return eval_statistics
 
-    def _train_from_batch(self, batch, process_fn, update_fn):
+    def _train_from_batch(self, batch, process_fn, update_fn, mesh=None):
+        """Process and update on ``batch`` (under ``mesh``: this rank's
+        rows of a batch split over the ranks) -> score statistics."""
         ts = timer.time()
         returns, adv_flat, path_returns = process_fn(self.baseline.state,
                                                      batch)
@@ -259,11 +277,12 @@ class BatchREINFORCE:
         if self._has_opt_state:
             new_params, stats, self.opt_state = update_fn(
                 self.policy.params, self.policy.transforms, obs, act,
-                adv_flat, mask, self.generator, self.opt_state)
+                adv_flat, mask, self.generator, self.opt_state, mesh=mesh)
         else:
             new_params, stats = update_fn(self.policy.params,
                                           self.policy.transforms, obs, act,
-                                          adv_flat, mask, self.generator)
+                                          adv_flat, mask, self.generator,
+                                          mesh=mesh)
         # install new params (new and old copies, clamped)
         self.policy.old_params = {k: v.detach().clone()
                                   for k, v in new_params.items()}
@@ -271,8 +290,8 @@ class BatchREINFORCE:
         _sync(self.device)
         t_update = timer.time() - ts
 
-        # score statistics
-        pr = path_returns.detach().cpu().numpy()
+        # score statistics, over every rank's paths
+        pr = gather_rows(path_returns.detach(), mesh).cpu().numpy()
         base_stats = [float(pr.mean()), float(pr.std()), float(pr.min()),
                       float(pr.max())]
         self.running_score = base_stats[0] if self.running_score is None \
@@ -285,7 +304,7 @@ class BatchREINFORCE:
             self.logger.log_kv("stoc_pol_min", base_stats[2])
             self.logger.log_kv("stoc_pol_max", base_stats[3])
             self.logger.log_kv("running_score", self.running_score)
-            self._log_success(batch)
+            self._log_success(batch, mesh)
         return base_stats
 
     def _log_update_stats(self, stats, t_update):
@@ -296,13 +315,14 @@ class BatchREINFORCE:
                            float(stats["surr_after"])
                            - float(stats["surr_before"]))
 
-    def _log_success(self, batch):
+    def _log_success(self, batch, mesh=None):
         fenv = self.fenv
         infos = batch.get("env_infos", {})
         flag = next((k for k in ("solved", "goal_achieved")
                      if k in infos), None)
         if hasattr(fenv, "evaluate_success") and flag is not None:
-            rate = fenv.evaluate_success(infos[flag].cpu().numpy())
+            rate = fenv.evaluate_success(
+                gather_rows(infos[flag], mesh).cpu().numpy())
             self.logger.log_kv("success_rate", rate)
 
     # -- list-of-paths entry (for demo flows and parity) ------------------

@@ -11,6 +11,11 @@
 The iteration counter is carried through the update like an optimizer
 state (``opt_state``, a 0-d tensor on the device), so the decay needs no
 host sync.  The demo arrays take the policy's dtype.
+
+Under a ``mesh`` every rank holds all the demo rows; each takes its part of
+them (``Mesh.cut``, any count), and ``n_valid`` and the advantages' std
+are over every rank's rows, so ``sample_coef`` and the gradient are the
+one-rank ones.
 """
 
 import numpy as np
@@ -20,6 +25,7 @@ from mjrl_tpu_torch.algos import functional as F
 from mjrl_tpu_torch.algos.npg_cg import NPG
 from mjrl_tpu_torch.ops.cg import cg_solve
 from mjrl_tpu_torch.ops.flat import tree_scale
+from mjrl_tpu_torch.ops.gae import masked_moments
 
 
 class DAPG(NPG):
@@ -58,52 +64,52 @@ class DAPG(NPG):
         self.opt_state = torch.zeros((), **like)
 
     def _update_core(self, params, transforms, obs, act, adv, mask,
-                     generator, iter_count):
+                     generator, iter_count, mesh=None):
         pol = self.policy.config
         damping = self.FIM_invert_args.get("damping", 1e-4)
         iters = self.FIM_invert_args.get("iters", 10)
 
         with torch.no_grad():
             surr_before = F.cpi_surrogate(pol, params, params, transforms,
-                                          obs, act, adv, mask)
+                                          obs, act, adv, mask, mesh)
         if self._demo_obs is not None and self.lam_0 > 0.0:
             n_demo = self._demo_obs.shape[0]
-            demo_adv = (self.lam_0 * self.lam_1 ** iter_count
-                        * torch.ones((n_demo,), dtype=adv.dtype,
-                                     device=adv.device))
+            demo_obs, demo_act = self._demo_obs, self._demo_act
+            if mesh is not None:        # this rank's part of the demos
+                demo_obs, demo_act = mesh.cut(demo_obs), mesh.cut(demo_act)
+            ones = torch.ones((demo_obs.shape[0],), dtype=adv.dtype,
+                              device=adv.device)
+            demo_adv = self.lam_0 * self.lam_1 ** iter_count * ones
             # masked std of the (already whitened) advantages
-            n_valid = torch.clamp(torch.sum(mask), min=1.0)
-            mean_a = torch.sum(adv * mask) / n_valid
-            std_a = torch.sqrt(torch.sum(mask * (adv - mean_a) ** 2)
-                               / n_valid)
-            all_obs = torch.cat([obs, self._demo_obs])
-            all_act = torch.cat([act, self._demo_act])
+            n_valid, _, std_a = masked_moments(adv, mask, mesh)
+            all_obs = torch.cat([obs, demo_obs])
+            all_act = torch.cat([act, demo_act])
             all_adv = 1e-2 * torch.cat([adv / (std_a + 1e-8), demo_adv])
-            all_mask = torch.cat([mask, torch.ones((n_demo,),
-                                                   dtype=mask.dtype,
-                                                   device=mask.device)])
+            all_mask = torch.cat([mask, ones.to(mask.dtype)])
             sample_coef = (n_valid + n_demo) / n_valid
             g = F.vpg_grad(pol, params, params, transforms, all_obs,
-                           all_act, all_adv, all_mask)
+                           all_act, all_adv, all_mask, mesh)
             g = tree_scale(g, sample_coef)
         else:
             g = F.vpg_grad(pol, params, params, transforms, obs, act, adv,
-                           mask)
+                           mask, mesh)
 
         hvp = F.make_hvp(pol, params, transforms, obs, mask, damping,
-                         generator, self.hvp_subsample)
+                         generator, self.hvp_subsample, mesh)
         npg = cg_solve(hvp, g, x0=g, cg_iters=iters)
         with torch.no_grad():
             alpha, delta = F.npg_step_size(g, npg, self.n_step_size)
             new_params = F.apply_step(pol, params, npg, alpha)
             surr_after = F.cpi_surrogate(pol, new_params, params,
-                                         transforms, obs, act, adv, mask)
-            kl = F.mean_kl(pol, new_params, params, transforms, obs, mask)
+                                         transforms, obs, act, adv, mask,
+                                         mesh)
+            kl = F.mean_kl(pol, new_params, params, transforms, obs, mask,
+                           mesh)
         stats = dict(alpha=alpha, delta=delta, surr_before=surr_before,
                      surr_after=surr_after, kl_dist=kl)
         return new_params, stats, iter_count + 1.0
 
-    def _train_from_batch(self, batch, process_fn, update_fn):
-        out = super()._train_from_batch(batch, process_fn, update_fn)
+    def _train_from_batch(self, batch, process_fn, update_fn, mesh=None):
+        out = super()._train_from_batch(batch, process_fn, update_fn, mesh)
         self.iter_count = float(self.opt_state)
         return out

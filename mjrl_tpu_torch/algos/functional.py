@@ -11,7 +11,11 @@
 - Optional HVP subsampling via a random subset of rows.
 
 All functions take a (policy module, params dict, transforms) triple and
-flat (batch, ...) data tensors with an optional validity mask.
+flat (batch, ...) data tensors with an optional validity mask.  Under a
+``mesh`` (``parallel/mesh.py``) the rows are this rank's of a batch split
+over the ranks: every mean is over all ranks' rows (numerator and count
+all-reduced), the gradient and each Fisher-vector product are all-reduced,
+and what comes out is the same on every rank.
 """
 
 import torch
@@ -19,12 +23,30 @@ import torch
 from mjrl_tpu_torch import distributions as dist
 from mjrl_tpu_torch.ops.cg import cg_solve
 from mjrl_tpu_torch.ops.flat import tree_add_scaled, tree_dot
+from mjrl_tpu_torch.parallel.mesh import (all_reduce_sum, all_reduce_tree,
+                                          local_index, row_offset)
 
 
-def _masked_mean(x, mask):
+def _sum_count(x, mask):
     if mask is None:
-        return torch.mean(x)
-    return torch.sum(x * mask) / torch.clamp(torch.sum(mask), min=1.0)
+        return torch.sum(x), torch.full((), x.numel(), dtype=x.dtype,
+                                        device=x.device)
+    return torch.sum(x * mask), torch.sum(mask).to(x.dtype)
+
+
+def _masked_mean(x, mask, mesh=None):
+    """Mean of ``x`` over the valid rows (of every rank: the sum and the
+    count in one all-reduce; no gradient crosses it)."""
+    num, den = all_reduce_sum(torch.stack(_sum_count(x, mask)), mesh)
+    return num / torch.clamp(den, min=1.0)
+
+
+def _local_share(x, mask, mesh):
+    """This rank's share of the mean over every rank's valid rows: its own
+    sum over the global count (all-reduced).  The ranks' shares sum to the
+    mean, so the all-reduce of their gradients is its gradient."""
+    num, den = _sum_count(x, mask)
+    return num / torch.clamp(all_reduce_sum(den.detach(), mesh), min=1.0)
 
 
 def _detach(params):
@@ -36,23 +58,34 @@ def log_likelihoods(policy, params, transforms, obs, act):
     return dist.log_likelihood(act, mu, ls)
 
 
-def cpi_surrogate(policy, params, params_old, transforms, obs, act, adv,
-                  mask=None):
-    """mean(LR * A)."""
+def _surrogate_terms(policy, params, params_old, transforms, obs, act,
+                     adv):
     ll_new = log_likelihoods(policy, params, transforms, obs, act)
     with torch.no_grad():
         ll_old = log_likelihoods(policy, _detach(params_old), transforms,
                                  obs, act)
-    lr = torch.exp(ll_new - ll_old)
-    return _masked_mean(lr * adv, mask)
+    return torch.exp(ll_new - ll_old) * adv
 
 
-def mean_kl(policy, params_new, params_old, transforms, obs, mask=None):
+def cpi_surrogate(policy, params, params_old, transforms, obs, act, adv,
+                  mask=None, mesh=None):
+    """mean(LR * A)."""
+    return _masked_mean(_surrogate_terms(policy, params, params_old,
+                                         transforms, obs, act, adv),
+                        mask, mesh)
+
+
+def _kl_terms(policy, params_new, params_old, transforms, obs):
     mu_n, ls_n = policy.dist_info(params_new, transforms, obs)
     mu_o, ls_o = policy.dist_info(params_old, transforms, obs)
-    kl = dist.kl_divergence(mu_o, ls_o.expand_as(mu_o), mu_n,
-                            ls_n.expand_as(mu_n))
-    return _masked_mean(kl, mask)
+    return dist.kl_divergence(mu_o, ls_o.expand_as(mu_o), mu_n,
+                              ls_n.expand_as(mu_n))
+
+
+def mean_kl(policy, params_new, params_old, transforms, obs, mask=None,
+            mesh=None):
+    return _masked_mean(_kl_terms(policy, params_new, params_old, transforms,
+                                  obs), mask, mesh)
 
 
 def _leaf_params(params):
@@ -60,34 +93,43 @@ def _leaf_params(params):
 
 
 def vpg_grad(policy, params, params_old, transforms, obs, act, adv,
-             mask=None):
-    """Policy gradient of the surrogate, as a parameter dict."""
+             mask=None, mesh=None):
+    """Policy gradient of the surrogate, as a parameter dict (under a
+    ``mesh``: this rank's share, then one all-reduce of the flattened
+    gradient)."""
     with torch.enable_grad():
         p = _leaf_params(params)
-        surr = cpi_surrogate(policy, p, params_old, transforms, obs, act,
-                             adv, mask)
+        surr = _local_share(_surrogate_terms(policy, p, params_old,
+                                             transforms, obs, act, adv),
+                            mask, mesh)
         grads = torch.autograd.grad(surr, list(p.values()))
-    return dict(zip(p, grads))
+    return all_reduce_tree(dict(zip(p, grads)), mesh)
 
 
 def make_hvp(policy, params, transforms, obs, mask=None, damping=1e-4,
-             generator=None, hvp_sample_frac=1.0):
+             generator=None, hvp_sample_frac=1.0, mesh=None):
     """Fisher-vector product at ``params``: F v + damping v.
 
     F is the Hessian of KL(old || new) in the new params at new = old =
-    params.  With ``hvp_sample_frac`` < 1, a random subset of rows is used.
+    params.  With ``hvp_sample_frac`` < 1, a random subset of rows is used:
+    a permutation of all rows (of every rank's, under a ``mesh``), of which
+    each rank keeps the rows it holds.  Under a ``mesh`` each product is
+    all-reduced: one collective per CG iteration.
     """
     if hvp_sample_frac < 0.99 and generator is not None:
-        n = obs.shape[0]
+        lo, n = row_offset(obs.shape[0], mesh)
         k = max(1, int(n * hvp_sample_frac))
         idx = torch.randperm(n, generator=generator,
                              device=generator.device)[:k].to(obs.device)
+        idx, own = local_index(idx, lo, obs.shape[0])  # the rows it holds
+        own = own.to(obs.dtype)
+        mask = own if mask is None else mask[idx] * own
         obs = obs[idx]
-        mask = None if mask is None else mask[idx]
 
     with torch.enable_grad():
         p = _leaf_params(params)
-        kl = mean_kl(policy, p, _detach(params), transforms, obs, mask)
+        kl = _local_share(_kl_terms(policy, p, _detach(params), transforms,
+                                    obs), mask, mesh)
         leaves = list(p.values())
         grad_kl = torch.autograd.grad(kl, leaves, create_graph=True)
 
@@ -96,18 +138,20 @@ def make_hvp(policy, params, transforms, obs, mask=None, damping=1e-4,
             gv = sum(torch.sum(g * v[k].detach())
                      for g, k in zip(grad_kl, p))
             hv = torch.autograd.grad(gv, leaves, retain_graph=True)
-        return tree_add_scaled(dict(zip(p, hv)), v, damping)
+        return tree_add_scaled(all_reduce_tree(dict(zip(p, hv)), mesh), v,
+                               damping)
 
     return hvp
 
 
 def npg_direction(policy, params, transforms, obs, act, adv, mask=None,
                   damping=1e-4, cg_iters=10, generator=None,
-                  hvp_sample_frac=1.0):
+                  hvp_sample_frac=1.0, mesh=None):
     """-> (vpg_grad, F^-1 g) via CG."""
-    g = vpg_grad(policy, params, params, transforms, obs, act, adv, mask)
+    g = vpg_grad(policy, params, params, transforms, obs, act, adv, mask,
+                 mesh)
     hvp = make_hvp(policy, params, transforms, obs, mask, damping,
-                   generator, hvp_sample_frac)
+                   generator, hvp_sample_frac, mesh)
     npg = cg_solve(hvp, g, x0=g, cg_iters=cg_iters)
     return g, npg
 

@@ -17,6 +17,8 @@ one Adam step trains every member with one set of launches (``baddbmm``),
 and each member (a ``WorldModel``) reads and writes its slice of the stack.
 Every random draw (initial weights, each epoch's permutation) comes from
 the model's own ``torch.Generator``; tests pass ``perms=`` instead.
+Under a ``mesh`` (``parallel/mesh.py``) the ensemble's model axis is split
+over the ranks: each fits its own members and the stacks are gathered.
 """
 
 from dataclasses import dataclass
@@ -30,6 +32,7 @@ from mjrl_tpu_torch.device import make_generator, resolve_device
 from mjrl_tpu_torch.models.fc_network import init_mlp_params, num_layers
 from mjrl_tpu_torch.ops.adam import adam_copy, adam_init, adam_step_
 from mjrl_tpu_torch.ops.flat import tree_to
+from mjrl_tpu_torch.parallel.mesh import gather_rows
 
 
 def as_tensor(x, dtype, device):
@@ -408,14 +411,21 @@ class WorldModelEnsemble:
     """Members' dynamics stacked on a leading model axis: one fit trains
     every member with one Adam step per minibatch, each member on its own
     permutations (from its own generator); ``predict_all`` queries every
-    member in one batched forward."""
+    member in one batched forward.
+
+    ``mesh``: the model axis is split over the mesh's ranks (``num_models``
+    must divide by them).  Every rank holds every member and gets the same
+    data; a fit trains this rank's members only (no gradient crosses
+    ranks) and then gathers the stacks, so every rank ends with the whole
+    ensemble; ``predict_all`` computes this rank's members and gathers.
+    Every member's generator draws on every rank, in lockstep with one
+    rank."""
 
     def __init__(self, num_models, state_dim, act_dim, seed=123, mesh=None,
                  **kwargs):
         if mesh is not None:
-            raise NotImplementedError(
-                "sharding the ensemble over devices is not ported "
-                "(ROADMAP.md M11)")
+            mesh.rows(num_models)       # raises unless they split evenly
+        self.mesh = mesh
         members = [WorldModel(state_dim, act_dim, seed=seed + i, **kwargs)
                    for i in range(num_models)]
         self.num_models = num_models
@@ -436,6 +446,7 @@ class WorldModelEnsemble:
         state = self.__dict__.copy()
         state["_dyn"] = tree_to(self._dyn, "cpu")
         state["device"] = str(self.device)
+        state["mesh"] = None            # a process group does not pickle
         return state
 
     def __setstate__(self, state):
@@ -467,6 +478,12 @@ class WorldModelEnsemble:
             for k, v in value.items():
                 d[k][i].copy_(v)
 
+    def _own(self):
+        """This rank's members, a slice of the model axis (all of them
+        without a mesh)."""
+        return slice(0, self.num_models) if self.mesh is None \
+            else self.mesh.rows(self.num_models)
+
     def __len__(self):
         return self.num_models
 
@@ -495,42 +512,54 @@ class WorldModelEnsemble:
             return torch.mean((mlp(p, x[idx], act) - y[idx]) ** 2,
                               dim=(1, 2))
 
+        own = self._own()
         if perms is not None:
-            perms = _as_perms(perms, self.device)
+            perms = _as_perms(perms, self.device)[own]
             perm_fn = lambda e: perms[:, e]
         else:
+            # every member draws, as on one rank; this rank keeps its own
             perm_fn = lambda e: torch.stack([
                 torch.randperm(n, generator=m.generator, device=self.device)
-                for m in self.members])
+                for m in self.members])[own]
         # one count for all members, the usual case; where a member was
         # fitted on its own the counts differ, and the stacked step then
         # corrects each member's moments by its own count
-        count = self._counts[0] if len(set(self._counts)) == 1 \
-            else torch.tensor(self._counts, device=self.device)
-        opt = {"mu": self._dyn["opt"]["mu"], "nu": self._dyn["opt"]["nu"],
-               "count": count}
+        counts = self._counts[own]
+        count = counts[0] if len(set(counts)) == 1 \
+            else torch.tensor(counts, device=self.device)
+        opt = {"mu": _rows(self._dyn["opt"]["mu"], own),
+               "nu": _rows(self._dyn["opt"]["nu"], own), "count": count}
         params, state, losses = fit_scan(
-            loss_fn, self._dyn["params"], opt, n, int(fit_mb_size),
-            int(fit_epochs), max_steps, perm_fn, first._fit_lr,
-            first._fit_wd, lead=(M,))
+            loss_fn, _rows(self._dyn["params"], own), opt, n,
+            int(fit_mb_size), int(fit_epochs), max_steps, perm_fn,
+            first._fit_lr, first._fit_wd, lead=(own.stop - own.start,))
+        gather = lambda tree: {k: gather_rows(v, self.mesh)
+                               for k, v in tree.items()}
         self._dyn = {
-            "params": params,
+            "params": gather(params),
             "tr": {k: v.unsqueeze(0).repeat((M,) + (1,) * v.dim())
                    for k, v in tr.items()},
-            "opt": {"mu": state["mu"], "nu": state["nu"]}}
-        self._counts = state["count"].tolist() \
-            if torch.is_tensor(state["count"]) else [state["count"]] * M
-        return losses.cpu().numpy()
+            "opt": {"mu": gather(state["mu"]), "nu": gather(state["nu"])}}
+        count = state["count"] if torch.is_tensor(state["count"]) \
+            else torch.full((len(counts),), state["count"])
+        self._counts = gather_rows(count.to(self.device),
+                                   self.mesh).tolist()
+        return gather_rows(losses, self.mesh).cpu().numpy()
 
     @torch.no_grad()
     def predict_all(self, s, a):
         """(num_models, N, d) stacked next-state predictions."""
         t = self.members[0]._t
         s, a = t(s), t(a)
-        M = self.num_models
-        return self.members[0].dyn_cfg.forward(
-            self._dyn["params"], self._dyn["tr"], s.expand(M, *s.shape),
-            a.expand(M, *a.shape))
+        own = self._own()
+        M = own.stop - own.start
+        return gather_rows(self.members[0].dyn_cfg.forward(
+            _rows(self._dyn["params"], own), _rows(self._dyn["tr"], own),
+            s.expand(M, *s.shape), a.expand(M, *a.shape)), self.mesh)
+
+
+def _rows(tree, rows):
+    return {k: v[rows] for k, v in tree.items()}
 
 
 def stacked_dynamics(models):

@@ -17,6 +17,7 @@ import torch
 
 from mjrl_tpu_torch.algos import functional as F
 from mjrl_tpu_torch.algos.batch_reinforce import BatchREINFORCE
+from mjrl_tpu_torch.ops.gae import masked_moments
 
 
 class NPG(BatchREINFORCE):
@@ -53,18 +54,21 @@ class NPG(BatchREINFORCE):
                 self.input_normalization = None
 
     def _update_core(self, params, transforms, obs, act, adv, mask,
-                     generator):
+                     generator, mesh=None):
+        """-> (new params, stats).  ``mesh``: the rows are this rank's;
+        the surrogates, the gradient, every Fisher-vector product and the
+        guard's KL reduce over the ranks, so each takes the same step."""
         pol = self.policy.config
         damping = self.FIM_invert_args.get("damping", 1e-4)
         iters = self.FIM_invert_args.get("iters", 10)
 
         with torch.no_grad():
             surr_before = F.cpi_surrogate(pol, params, params, transforms,
-                                          obs, act, adv, mask)
+                                          obs, act, adv, mask, mesh)
         g, npg = F.npg_direction(
             pol, params, transforms, obs, act, adv, mask,
             damping=damping, cg_iters=iters, generator=generator,
-            hvp_sample_frac=self.hvp_subsample)
+            hvp_sample_frac=self.hvp_subsample, mesh=mesh)
         with torch.no_grad():
             alpha, delta = F.npg_step_size(g, npg, self.n_step_size,
                                            const_alpha=self.alpha)
@@ -77,7 +81,8 @@ class NPG(BatchREINFORCE):
 
                 def kl_at(a):
                     new = F.apply_step(pol, params, npg, a)
-                    return F.mean_kl(pol, new, params, transforms, obs, mask)
+                    return F.mean_kl(pol, new, params, transforms, obs, mask,
+                                     mesh)
 
                 kl, it = kl_at(alpha), 0
                 while bool(kl > kl_cap) and it < 10:
@@ -85,29 +90,30 @@ class NPG(BatchREINFORCE):
                     kl, it = kl_at(alpha), it + 1
             new_params = F.apply_step(pol, params, npg, alpha)
             surr_after = F.cpi_surrogate(pol, new_params, params, transforms,
-                                         obs, act, adv, mask)
-            kl = F.mean_kl(pol, new_params, params, transforms, obs, mask)
+                                         obs, act, adv, mask, mesh)
+            kl = F.mean_kl(pol, new_params, params, transforms, obs, mask,
+                           mesh)
         return new_params, dict(alpha=alpha, delta=delta,
                                 surr_before=surr_before,
                                 surr_after=surr_after, kl_dist=kl,
                                 vpg_grad=g, npg_grad=npg)
 
-    def _train_from_batch(self, batch, process_fn, update_fn):
-        # input normalization: EMA of batch obs mean/std folded into the
-        # policy input transforms before the update
+    def _train_from_batch(self, batch, process_fn, update_fn, mesh=None):
+        # input normalization: EMA of batch obs mean/std (over the valid
+        # steps of every rank) folded into the policy input transforms
+        # before the update
         if self.input_normalization:
             obs = batch["observations"].reshape(
                 -1, batch["observations"].shape[-1])
-            valid = obs[batch["mask"].reshape(-1) > 0]
-            data_shift = valid.mean(dim=0)
-            data_scale = valid.std(dim=0, unbiased=False)
+            _, data_shift, data_scale = masked_moments(
+                obs, batch["mask"].reshape(-1), mesh)
             tr = self.policy.transforms
             w = self.input_normalization
             self.policy.set_transformations(
                 in_shift=w * tr.in_shift + (1 - w) * data_shift,
                 in_scale=w * tr.in_scale + (1 - w) * data_scale,
                 out_shift=tr.out_shift, out_scale=tr.out_scale)
-        return super()._train_from_batch(batch, process_fn, update_fn)
+        return super()._train_from_batch(batch, process_fn, update_fn, mesh)
 
     def _log_update_stats(self, stats, t_update):
         self.logger.log_kv("alpha", float(stats["alpha"]))

@@ -8,7 +8,10 @@
 - the Adam state persists across training iterations (``self.opt_state``);
 - ``min_log_std`` clamp after every step.
 
-The minibatch loop runs from the host, one Adam step per minibatch.
+The minibatch loop runs from the host, one Adam step per minibatch.  Under
+a ``mesh`` the minibatch indices are drawn over every rank's rows, each rank
+takes the rows it holds, and the gradient and the row count are all-reduced
+per minibatch: every rank takes the one-rank Adam step.
 """
 
 import torch
@@ -16,6 +19,8 @@ import torch
 from mjrl_tpu_torch.algos import functional as F
 from mjrl_tpu_torch.algos.batch_reinforce import BatchREINFORCE
 from mjrl_tpu_torch.ops.adam import adam_copy, adam_init, adam_step_
+from mjrl_tpu_torch.parallel.mesh import (local_index, masked_mean_grad,
+                                          row_offset)
 
 
 class PPO(BatchREINFORCE):
@@ -38,29 +43,36 @@ class PPO(BatchREINFORCE):
         self.opt_state = adam_init(self.policy.params)
         self._has_opt_state = True
 
-    def ppo_surrogate(self, params, ll_old, transforms, obs, act, adv,
-                      mask=None):
-        """Clipped surrogate; ``ll_old`` = log-likelihoods of ``act`` under
-        the pre-update policy."""
+    def _objective(self, params, ll_old, transforms, obs, act, adv):
         ll_new = F.log_likelihoods(self.policy.config, params, transforms,
                                    obs, act)
         lr = torch.exp(ll_new - ll_old)
         lr_clip = torch.clamp(lr, 1.0 - self.clip_coef, 1.0 + self.clip_coef)
-        obj = torch.minimum(lr * adv, lr_clip * adv)
+        return torch.minimum(lr * adv, lr_clip * adv)
+
+    def ppo_surrogate(self, params, ll_old, transforms, obs, act, adv,
+                      mask=None):
+        """Clipped surrogate; ``ll_old`` = log-likelihoods of ``act`` under
+        the pre-update policy.  The JAX package's public name: the update
+        itself takes the gradient of ``_objective``'s rows through
+        ``masked_mean_grad``, which reduces them over the ranks."""
+        obj = self._objective(params, ll_old, transforms, obs, act, adv)
         if mask is None:
             return torch.mean(obj)
         return torch.sum(obj * mask) / torch.clamp(torch.sum(mask), min=1.0)
 
     def _update_core(self, params, transforms, obs, act, adv, mask,
-                     generator, opt_state, idxs=None):
+                     generator, opt_state, idxs=None, mesh=None):
         """-> (new params, stats, new Adam state).  ``idxs`` (total,
-        mb_size), for tests, replaces the drawn minibatch indices."""
+        mb_size), for tests, replaces the drawn minibatch indices (global
+        rows under a ``mesh``)."""
         pol = self.policy.config
-        n = obs.shape[0]
+        n_local = obs.shape[0]
+        lo, n = row_offset(n_local, mesh)
         num_mb = max(int(n // self.mb_size), 1)
         with torch.no_grad():
             surr_before = F.cpi_surrogate(pol, params, params, transforms,
-                                          obs, act, adv, mask)
+                                          obs, act, adv, mask, mesh)
             ll_old = F.log_likelihoods(pol, params, transforms, obs, act)
         if idxs is None:
             # with-replacement minibatch sampling
@@ -70,21 +82,24 @@ class PPO(BatchREINFORCE):
         p = {k: v.detach().clone().requires_grad_(True)
              for k, v in params.items()}
         opt_state = adam_copy(opt_state)
+        if mask is None:
+            mask = torch.ones_like(adv)
         for idx in idxs:
+            idx, own = local_index(idx, lo, n_local)   # the rows it holds
+            w = mask[idx] * own
             with torch.enable_grad():
-                loss = -self.ppo_surrogate(p, ll_old[idx], transforms,
-                                           obs[idx], act[idx], adv[idx],
-                                           mask[idx])
-                grads = torch.autograd.grad(loss, list(p.values()))
-            opt_state = adam_step_(p, dict(zip(p, grads)), opt_state,
-                                   self.learn_rate)
+                obj = self._objective(p, ll_old[idx], transforms, obs[idx],
+                                      act[idx], adv[idx])
+                grads = masked_mean_grad(-obj, w, p, mesh)
+            opt_state = adam_step_(p, grads, opt_state, self.learn_rate)
             with torch.no_grad():
                 p["log_std"].clamp_(min=pol.min_log_std)
         new_params = {k: v.detach() for k, v in p.items()}
         with torch.no_grad():
             surr_after = F.cpi_surrogate(pol, new_params, params, transforms,
-                                         obs, act, adv, mask)
-            kl = F.mean_kl(pol, new_params, params, transforms, obs, mask)
+                                         obs, act, adv, mask, mesh)
+            kl = F.mean_kl(pol, new_params, params, transforms, obs, mask,
+                           mesh)
         stats = dict(alpha=self.learn_rate, surr_before=surr_before,
                      surr_after=surr_after, kl_dist=kl)
         return new_params, stats, opt_state

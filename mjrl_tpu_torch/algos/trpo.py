@@ -33,24 +33,27 @@ class TRPO(NPG):
         self.n_step_size = 2.0 * self.kl_dist
 
     def _update_core(self, params, transforms, obs, act, adv, mask,
-                     generator):
+                     generator, mesh=None):
+        """-> (new params, stats); ``mesh`` as NPG's: each line-search KL
+        is reduced, so every rank stops at the same attempt."""
         pol = self.policy.config
         damping = self.FIM_invert_args.get("damping", 1e-4)
         iters = self.FIM_invert_args.get("iters", 10)
 
         with torch.no_grad():
             surr_before = F.cpi_surrogate(pol, params, params, transforms,
-                                          obs, act, adv, mask)
+                                          obs, act, adv, mask, mesh)
         g, npg = F.npg_direction(
             pol, params, transforms, obs, act, adv, mask,
             damping=damping, cg_iters=iters, generator=generator,
-            hvp_sample_frac=self.hvp_subsample)
+            hvp_sample_frac=self.hvp_subsample, mesh=mesh)
         with torch.no_grad():
             alpha, delta = F.npg_step_size(g, npg, self.n_step_size)
 
             def kl_at(a):
                 new = F.apply_step(pol, params, npg, a)
-                return F.mean_kl(pol, new, params, transforms, obs, mask)
+                return F.mean_kl(pol, new, params, transforms, obs, mask,
+                                 mesh)
 
             kl, k = kl_at(alpha), 0
             while bool(kl >= self.kl_dist) and k < 100:
@@ -60,8 +63,9 @@ class TRPO(NPG):
                 alpha = torch.zeros_like(alpha)
             new_params = F.apply_step(pol, params, npg, alpha)
             surr_after = F.cpi_surrogate(pol, new_params, params, transforms,
-                                         obs, act, adv, mask)
-            kl = F.mean_kl(pol, new_params, params, transforms, obs, mask)
+                                         obs, act, adv, mask, mesh)
+            kl = F.mean_kl(pol, new_params, params, transforms, obs, mask,
+                           mesh)
         return new_params, dict(alpha=alpha, delta=delta,
                                 surr_before=surr_before,
                                 surr_after=surr_after, kl_dist=kl,

@@ -79,14 +79,15 @@ class _HostBaseline:
             except RuntimeError:      # state saved by another device kind
                 self.generator.manual_seed(self.seed)
 
-    def fit_state(self, state, obs, returns, mask):
-        """The functional fit of ``state`` on batched tensors, with the
-        baseline's generator where it needs one -> (new state, e_before,
-        e_after); the baseline's own state is not changed."""
+    def fit_state(self, state, obs, returns, mask, mesh=None):
+        """The functional fit of ``state`` on batched tensors (this rank's
+        rows under ``mesh``), with the baseline's generator where it needs
+        one -> (new state, e_before, e_after); the baseline's own state is
+        not changed."""
         if self.needs_key:
             return self.cfg.fit(state, obs, returns, mask,
-                                generator=self.generator)
-        return self.cfg.fit(state, obs, returns, mask)
+                                generator=self.generator, mesh=mesh)
+        return self.cfg.fit(state, obs, returns, mask, mesh=mesh)
 
     @torch.no_grad()
     def fit(self, paths, return_errors=False):

@@ -26,6 +26,7 @@ import torch
 
 from mjrl_tpu_torch.device import resolve_device
 from mjrl_tpu_torch.ops.cuda_planar import cuda_step_n_batched
+from mjrl_tpu_torch.parallel.mesh import shard_rollout_keys
 from mjrl_tpu_torch.physics.kinematics import body_frames, site_positions
 from mjrl_tpu_torch.physics.model import Model, State
 from mjrl_tpu_torch.physics.planar import extract_planar
@@ -150,9 +151,13 @@ class MujocoLikeEnv:
             info=self._info(obs, reward),
             t=torch.zeros((n,), dtype=torch.int32, device=obs.device))
 
-    def reset(self, num_envs, generator=None) -> EnvState:
+    def reset(self, num_envs, generator=None, mesh=None) -> EnvState:
+        """``num_envs`` fresh states.  Under a ``mesh`` the draws are made
+        for all ``num_envs`` rows (as one rank makes them) and the state is
+        built for this rank's rows only."""
         scenery = self._reset_scenery(num_envs, generator)
         qpos, qvel = self._reset_qpos_qvel(num_envs, generator)
+        scenery, qpos, qvel = shard_rollout_keys((scenery, qpos, qvel), mesh)
         return self._fresh_state(State(qpos=qpos, qvel=qvel), scenery)
 
     def step(self, state: EnvState, action) -> EnvState:

@@ -13,10 +13,9 @@ qvel] and user-supplied reward / termination callables:
 batched tensors ((B, obs_dim), (B, nu)) -> (B,), as in the JAX package
 (whose ``done_fn`` also takes the observation alone).  With
 ``reset_noise`` > 0, qpos gets additive uniform noise and qvel gaussian
-noise scaled by it, both from the generator ``reset`` is given; the
-quaternion segments of ball and free joints are then renormalized (the
-JAX package leaves them to the integrator, which renormalizes them at the
-first step: the noise keeps them valid either way).
+noise scaled by it, both from the generator ``reset`` is given.  As in the
+JAX package, the quaternion segments of ball and free joints are left as
+drawn: the kinematics and the integrator normalize them.
 """
 
 import numpy as np
@@ -24,7 +23,6 @@ import torch
 
 from mjrl_tpu_torch.envs.base import MujocoLikeEnv
 from mjrl_tpu_torch.physics.mjcf import load_mjcf
-from mjrl_tpu_torch.physics.model import BALL, FREE
 
 
 class MJCFEnv(MujocoLikeEnv):
@@ -48,12 +46,6 @@ class MJCFEnv(MujocoLikeEnv):
         self._reward_fn = reward_fn
         self._done_fn = done_fn
         self._reset_noise = float(reset_noise)
-        # the first qpos index of every quaternion (ball: its 4 numbers,
-        # free: the 4 after its position)
-        self._quat_adr = [adr + (3 if jt == FREE else 0)
-                          for jt, adr in zip(self.model.jnt_type,
-                                             self.model.jnt_qposadr)
-                          if jt in (BALL, FREE)]
         self._init_common(dtype, device)
 
     # -- MujocoLikeEnv hooks ----------------------------------------------
@@ -70,10 +62,6 @@ class MJCFEnv(MujocoLikeEnv):
                            * (2.0 * r) - r)
             qvel = qvel + r * torch.randn(qvel.shape, generator=generator,
                                           **kw)
-            for a in self._quat_adr:
-                quat = qpos[:, a:a + 4]
-                qpos[:, a:a + 4] = quat / torch.linalg.vector_norm(
-                    quat, dim=-1, keepdim=True)
         return qpos, qvel
 
     def _obs(self, data, scenery, physics):

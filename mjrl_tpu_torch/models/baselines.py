@@ -15,7 +15,11 @@ an MLP (counterpart of ``mjrl_tpu/models/baselines.py``).
 
 Everything operates on batched fixed-shape paths — observations
 (N, T, obs_dim), returns (N, T), optional validity mask (N, T) — on the
-tensors' own device.
+tensors' own device.  ``fit(..., mesh=)`` fits on the paths of every rank
+(each holding its N / R rows): the normal equations and the errors are
+all-reduced, and the MLP's minibatches are drawn over all ranks' samples
+with the gradient all-reduced per Adam step; every rank ends with the same
+state.
 """
 
 from dataclasses import dataclass
@@ -26,6 +30,9 @@ import torch
 from mjrl_tpu_torch.models.fc_network import (identity_transforms,
                                               init_mlp_params, mlp_forward)
 from mjrl_tpu_torch.ops.adam import adam_copy, adam_init, adam_step_
+from mjrl_tpu_torch.parallel.mesh import (all_reduce_sum, all_reduce_tree,
+                                          local_index, masked_mean_grad,
+                                          row_offset)
 
 
 def time_features(T, dtype=torch.float32, device=None):
@@ -38,16 +45,22 @@ def _clip_obs(obs):
     return torch.clamp(obs, -10.0, 10.0) / 10.0
 
 
-def _masked_rel_error(pred, returns, mask, eps=0.0):
+def _masked_rel_error(pred, returns, mask, eps=0.0, mesh=None):
     err = (returns - pred) * mask
-    return torch.sum(err ** 2) / (torch.sum((returns * mask) ** 2) + eps)
+    num, den = all_reduce_sum(torch.stack([torch.sum(err ** 2),
+                                           torch.sum((returns * mask) ** 2)]),
+                              mesh)
+    return num / (den + eps)
 
 
-def _lstsq_with_retry(featmat, returns, reg_coeff):
+def _lstsq_with_retry(featmat, returns, reg_coeff, mesh=None):
     """Solve (F^T F + reg I) c = F^T R; on NaN multiply reg by 10, up to 10
-    attempts — as a fixed loop with a ``found`` flag, no host sync."""
-    ftf = featmat.T @ featmat
-    ftr = featmat.T @ returns
+    attempts — as a fixed loop with a ``found`` flag, no host sync.  Under
+    a ``mesh`` F^T F and F^T R are all-reduced (one collective) and every
+    rank solves the same system."""
+    red = all_reduce_tree({"ftf": featmat.T @ featmat,
+                           "ftr": featmat.T @ returns}, mesh)
+    ftf, ftr = red["ftf"], red["ftr"]
     eye = torch.eye(featmat.shape[-1], dtype=featmat.dtype,
                     device=featmat.device)
     coeffs = torch.zeros((featmat.shape[-1],), dtype=featmat.dtype,
@@ -77,7 +90,7 @@ class ZeroBaseline:
         return torch.zeros(obs.shape[:-1], dtype=obs.dtype,
                            device=obs.device)
 
-    def fit(self, state, obs, returns, mask=None):
+    def fit(self, state, obs, returns, mask=None, mesh=None):
         one = torch.ones((), dtype=obs.dtype, device=obs.device)
         return state, one, one
 
@@ -107,7 +120,7 @@ class LinearBaseline:
     def predict(self, coeffs, obs):
         return self.features(obs) @ coeffs.to(obs.dtype)
 
-    def fit(self, coeffs, obs, returns, mask=None):
+    def fit(self, coeffs, obs, returns, mask=None, mesh=None):
         """obs (N, T, n), returns (N, T) -> (new_coeffs, e_before, e_after)."""
         featmat = self.features(obs).reshape(-1, self.num_features())
         rets = returns.reshape(-1)
@@ -115,9 +128,9 @@ class LinearBaseline:
         featmat = featmat * m[:, None]
         rets_m = rets * m
         e_before = _masked_rel_error(featmat @ coeffs.to(featmat.dtype),
-                                     rets, m)
-        new_coeffs = _lstsq_with_retry(featmat, rets_m, self.reg_coeff)
-        e_after = _masked_rel_error(featmat @ new_coeffs, rets, m)
+                                     rets, m, mesh=mesh)
+        new_coeffs = _lstsq_with_retry(featmat, rets_m, self.reg_coeff, mesh)
+        e_after = _masked_rel_error(featmat @ new_coeffs, rets, m, mesh=mesh)
         return new_coeffs, e_before, e_after
 
 
@@ -184,21 +197,25 @@ class MLPBaseline:
         return self._forward(state[0], self.features(obs))
 
     def fit(self, state, obs, returns, mask=None, generator=None,
-            perms=None):
+            perms=None, mesh=None):
         """Minibatch Adam over ``epochs`` permutations of the samples,
         ``n_total // batch_size`` steps each (no last partial batch).  The
         permutations come from ``generator``, or for tests ``perms``
-        (epochs, n_total).  -> ((params, adam state), e_before, e_after)."""
+        (epochs, n_total).  Under a ``mesh`` the samples are every rank's
+        (``n_total`` counts them all) and each rank takes the rows of a
+        minibatch it holds.  -> ((params, adam state), e_before,
+        e_after)."""
         params, opt_state = state[0], adam_copy(state[1])
         feats = self.features(obs).reshape(-1, self.num_features())
         rets = returns.reshape(-1)
         m = torch.ones_like(rets) if mask is None else mask.reshape(-1)
-        n_total = rets.shape[0]
+        n_local = rets.shape[0]
+        lo, n_total = row_offset(n_local, mesh)
         bs = min(self.batch_size, n_total)
         num_steps = max(n_total // bs, 1)
         with torch.no_grad():
             e_before = _masked_rel_error(self._forward(params, feats), rets,
-                                         m, eps=1e-8)
+                                         m, eps=1e-8, mesh=mesh)
         p = {k: v.detach().clone().requires_grad_(True)
              for k, v in params.items()}
         for e in range(self.epochs):
@@ -207,16 +224,16 @@ class MLPBaseline:
             batches = torch.as_tensor(perm, device=feats.device)[
                 :num_steps * bs].reshape(num_steps, bs)
             for idx in batches:
-                bf, br, bm = feats[idx], rets[idx], m[idx]
+                idx, own = local_index(idx, lo, n_local)  # the rows it holds
+                bm = m[idx] * own
                 with torch.enable_grad():
-                    pred = self._forward(p, bf)
-                    loss = torch.sum(bm * (pred - br) ** 2) / torch.clamp(
-                        torch.sum(bm), min=1.0)
-                    grads = torch.autograd.grad(loss, list(p.values()))
-                opt_state = adam_step_(p, dict(zip(p, grads)), opt_state,
-                                       self.learn_rate, self.reg_coef)
+                    pred = self._forward(p, feats[idx])
+                    grads = masked_mean_grad((pred - rets[idx]) ** 2, bm, p,
+                                             mesh)
+                opt_state = adam_step_(p, grads, opt_state, self.learn_rate,
+                                       self.reg_coef)
         params = {k: v.detach() for k, v in p.items()}
         with torch.no_grad():
             e_after = _masked_rel_error(self._forward(params, feats), rets,
-                                        m, eps=1e-8)
+                                        m, eps=1e-8, mesh=mesh)
         return (params, opt_state), e_before, e_after

@@ -67,6 +67,16 @@ def init_linear_(linear, generator, scale=1.0):
                              p.dtype).to(p.device))
 
 
+def init_linear(generator, in_dim, out_dim, dtype=torch.float32):
+    """One layer in the JAX package's layout, ``{"w": (in_dim, out_dim),
+    "b": (out_dim,)}``, with nn.Linear's default init U(-k, k), k =
+    1/sqrt(in_dim): the weight then the bias drawn from ``generator`` (on
+    its device)."""
+    k = 1.0 / math.sqrt(in_dim)
+    return {"w": _uniform(generator, (in_dim, out_dim), k, dtype),
+            "b": _uniform(generator, (out_dim,), k, dtype)}
+
+
 def init_mlp_params(generator, in_dim, out_dim, hidden_sizes=(64, 64),
                     dtype=torch.float32, device=None):
     """A parameter dict ``{"layers.<i>.weight": (out, in), "layers.<i>.bias":

@@ -77,6 +77,17 @@ def _load():
     return lib
 
 
+def available():
+    """True when the library builds (or is built) and loads.  Nothing in
+    the port picks another path on it: the path ops raise without the
+    library."""
+    try:
+        _load()
+    except (RuntimeError, OSError):
+        return False
+    return True
+
+
 def _ptr(arr, ctype):
     return arr.ctypes.data_as(ctypes.POINTER(ctype))
 

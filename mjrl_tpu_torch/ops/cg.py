@@ -7,6 +7,10 @@ Fisher-vector product never leaves the device, and (b) honors ``x0``.
 Runs a fixed number of iterations with a ``done`` flag emulating the
 residual-tolerance early exit without a host sync — iterations after
 convergence are no-ops.
+
+Under data parallelism (``parallel/mesh.py``) CG needs no collective of
+its own: ``b`` and every ``f_Ax`` result are already all-reduced, so the
+vectors and dot products are the same on every rank.
 """
 
 import torch

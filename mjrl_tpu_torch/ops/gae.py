@@ -18,6 +18,8 @@ value of the obs after the last step.
 
 import torch
 
+from mjrl_tpu_torch.parallel.mesh import all_reduce_sum
+
 
 def discount_sum(x, gamma, terminal=0.0):
     """Reverse discounted cumsum of ``x`` (..., T) with terminal bootstrap.
@@ -126,17 +128,28 @@ batched_returns_dones = returns_with_dones
 batched_gae_dones = gae_with_dones
 
 
-def whiten(adv, mask=None, eps=1e-6):
+def masked_moments(x, mask=None, mesh=None):
+    """(count, mean, std) over the rows of ``x`` (dim 0) where ``mask``
+    (rows,) is 1, the population std.  Under a ``mesh``: over every rank's
+    rows, with two all-reduces in this order -- the count and the sum, then
+    the centred second moment -- so that one rank and R ranks agree at
+    roundoff."""
+    w = torch.ones(x.shape[:1], dtype=x.dtype, device=x.device) \
+        if mask is None else mask.to(x.dtype)
+    w = w.reshape(w.shape + (1,) * (x.dim() - 1))
+    first = all_reduce_sum(torch.cat([torch.sum(w).reshape(1),
+                                      torch.sum(x * w, dim=0).reshape(-1)]),
+                           mesh)
+    n = torch.clamp(first[0], min=1.0)
+    mean = (first[1:] / n).reshape(x.shape[1:])
+    var = all_reduce_sum(torch.sum(w * (x - mean) ** 2, dim=0), mesh) / n
+    return n, mean, torch.sqrt(var)
+
+
+def whiten(adv, mask=None, eps=1e-6, mesh=None):
     """Advantage whitening: (a - mean) / (std + 1e-6), computed over valid
-    entries only."""
-    if mask is None:
-        mean = torch.mean(adv)
-        std = torch.std(adv, unbiased=False)
-    else:
-        n = torch.clamp(torch.sum(mask), min=1.0)
-        mean = torch.sum(adv * mask) / n
-        var = torch.sum(mask * (adv - mean) ** 2) / n
-        std = torch.sqrt(var)
+    entries only (of every rank's rows under a ``mesh``)."""
+    _, mean, std = masked_moments(adv, mask, mesh)
     out = (adv - mean) / (std + eps)
     if mask is not None:
         out = out * mask

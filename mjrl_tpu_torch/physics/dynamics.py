@@ -224,6 +224,28 @@ def mass_and_bias(model: Model, data: Data, cdof, cvel, cdofdot, qvel):
     return m, project_body_forces(model, cdof, f)
 
 
+def body_spatial_inertias(model: Model, data: Data):
+    """(B, nbody, 6, 6) world-origin spatial inertias (a diagnostic; the
+    dynamics apply the inertias without building them)."""
+    mass, i_world, com = _inertia_ctx(model, data)
+    return pm.spatial_inertia(mass.expand(com.shape[:-1]), i_world, com)
+
+
+def mass_matrix(model: Model, data: Data, cdof):
+    """Dense joint-space inertia M (B, nv, nv), armature included."""
+    zero_v = cdof.new_zeros(cdof.shape[:-1])
+    m, _ = mass_and_bias(model, data, cdof,
+                         cdof.new_zeros(data.xipos.shape[:-1] + (6,)),
+                         torch.zeros_like(cdof), zero_v)
+    return m
+
+
+def bias_force(model: Model, data: Data, cdof, cvel, cdofdot, qvel):
+    """qfrc_bias (B, nv): Coriolis, centrifugal and gravity forces, such
+    that M qacc + qfrc_bias = qfrc_applied."""
+    return mass_and_bias(model, data, cdof, cvel, cdofdot, qvel)[1]
+
+
 def project_body_forces(model: Model, cdof, forces):
     """Map per-body world-origin spatial forces (B, nbody, 6) to qfrc
     (B, nv)."""

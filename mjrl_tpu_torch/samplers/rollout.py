@@ -26,7 +26,11 @@ An external host env behind a ``GymEnv`` (gymnasium style, no functional
 API) is sampled on the host one episode at a time by ``sample_paths`` and
 ``sample_data_batch``, the policy forward on the policy's device.
 
-``mesh`` is not ported yet (ROADMAP.md M11).
+Under a ``mesh`` (``parallel/mesh.py``) each rank steps its B / R rows,
+so the planar kernel launches once per control step on this rank's rows.
+Every draw (resets, action noise) is made for the whole batch and sliced,
+so R ranks reproduce the one-rank rollout row for row; the returned batch
+holds this rank's rows.
 """
 
 import math
@@ -36,6 +40,7 @@ import numpy as np
 import torch
 
 from mjrl_tpu_torch.device import make_generator
+from mjrl_tpu_torch.parallel.mesh import shard_rollout_keys
 
 
 def _never_terminates(env):
@@ -81,18 +86,25 @@ def rollout_batch(env, policy, params, transforms, generator, num_traj,
     ``env.reset``: a callable ``t -> EnvState`` of num_traj rows, or a pair
     (qpos (T, num_traj, nq), qvel (T, num_traj, nv)).
 
-    Returns a dict with leaves of shape (num_traj, T, ...).
+    ``mesh``: this rank steps its rows of the ``num_traj`` (which must
+    divide by the mesh's ranks); ``state0``, ``noise`` and ``resets`` are
+    whole-batch and sliced the same way.
+
+    Returns a dict with leaves of shape (num_traj, T, ...), or (num_traj /
+    R, T, ...) under a mesh of R ranks.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "sharded rollouts are not ported (ROADMAP.md M11)")
     T = env.horizon if horizon is None else min(int(horizon), env.horizon)
-    B = int(num_traj)
+    n_all = int(num_traj)             # draws are made for all the rows
+    if mesh is not None:
+        mesh.rows(n_all)              # raises unless they split evenly
+    shard = lambda x: shard_rollout_keys(x, mesh)
     terminating = not _never_terminates(env)
 
-    s = env.reset(B, generator) if state0 is None else state0
+    s = env.reset(n_all, generator, mesh=mesh) if state0 is None \
+        else shard(state0)
     dt, dev = s.obs.dtype, s.obs.device
     A = env.action_dim
+    B = s.obs.shape[0]                # this rank's rows
     observations = torch.empty((B, T, s.obs.shape[-1]), dtype=dt, device=dev)
     actions = torch.empty((B, T, A), dtype=dt, device=dev)
     means = torch.empty((B, T, A), dtype=dt, device=dev)
@@ -102,20 +114,22 @@ def rollout_batch(env, policy, params, transforms, generator, num_traj,
     infos = []
     alive = torch.ones((B,), dtype=dt, device=dev)
     if resets is None:
-        fresh_state = lambda t: env.reset(B, generator)
+        fresh_state = lambda t: env.reset(n_all, generator, mesh=mesh)
     elif callable(resets):
-        fresh_state = resets
+        fresh_state = lambda t: shard(resets(t))
     else:
-        fresh_state = lambda t: env.state_from_qpos_qvel(resets[0][t],
-                                                         resets[1][t])
+        fresh_state = lambda t: env.state_from_qpos_qvel(
+            shard(resets[0][t]), shard(resets[1][t]))
 
     for t in range(T):
         mean, log_std = policy.dist_info(params, transforms, s.obs)
         if eval_mode:
             action = mean
         else:
-            eps = noise[t].to(dt) if noise is not None else torch.randn(
-                mean.shape, generator=generator, dtype=dt, device=dev)
+            # the whole batch's draw on every rank, then this rank's rows
+            eps = noise[t] if noise is not None else torch.randn(
+                (n_all, A), generator=generator, dtype=dt, device=dev)
+            eps = shard(eps).to(dt)
             action = mean + torch.exp(log_std) * eps
         ns = env.step(s, action)
         observations[:, t] = s.obs

@@ -24,6 +24,7 @@ import torch
 from mjrl_tpu.algos.model_accel import nn_dynamics as jnd
 from mjrl_tpu_torch import convert
 from mjrl_tpu_torch.algos.model_accel import nn_dynamics as tnd
+from mjrl_tpu_torch.parallel import make_mesh
 
 from test_torch_baselines import jax_perms
 
@@ -288,5 +289,12 @@ def test_conversion_round_trip_and_pickle():
     # both copies fit on alike: same draws, same result
     close(copy.fit_dynamics(s, a, sp, 16, 1), tens.fit_dynamics(s, a, sp, 16,
                                                                 1), 0.0)
-    with pytest.raises(NotImplementedError, match="M11"):
-        tnd.WorldModelEnsemble(2, D, A, mesh=object(), device="cpu")
+    # the model axis over a mesh (M11) is ported: on a one-rank mesh the
+    # ensemble fits as without one, and a pickle drops the process group
+    kw = dict(seed=8, hidden_size=HID, device="cpu", dtype=torch.float64)
+    meshed = tnd.WorldModelEnsemble(2, D, A, mesh=make_mesh(), **kw)
+    plain = tnd.WorldModelEnsemble(2, D, A, **kw)
+    close(meshed.fit_dynamics(s, a, sp, 16, 2), plain.fit_dynamics(
+        s, a, sp, 16, 2), 0.0)
+    close(meshed.predict_all(s, a), plain.predict_all(s, a), 0.0)
+    assert pickle.loads(pickle.dumps(meshed)).mesh is None

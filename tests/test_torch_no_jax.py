@@ -47,7 +47,9 @@ def test_every_port_module_imports_without_jax_or_drawing_packages():
     assert proc.returncode == 0, proc.stderr[-4000:]
     count, *names = proc.stdout.split()
     names = set(names)
-    for new in ("mjrl_tpu_torch.native", "mjrl_tpu_torch.envs.mjcf_env",
+    for new in ("mjrl_tpu_torch.parallel", "mjrl_tpu_torch.parallel.mesh",
+                "mjrl_tpu_torch.parallel.distributed",
+                "mjrl_tpu_torch.native", "mjrl_tpu_torch.envs.mjcf_env",
                 "mjrl_tpu_torch.utils.checkpoint", "mjrl_tpu_torch.utils.sweep",
                 "mjrl_tpu_torch.utils.render",
                 "mjrl_tpu_torch.utils.visualize_policy",

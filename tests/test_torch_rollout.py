@@ -27,12 +27,14 @@ from mjrl_tpu_torch.envs import base as tbase
 from mjrl_tpu_torch.envs.swimmer import SwimmerEnv
 from mjrl_tpu_torch.models import policies as tpol
 from mjrl_tpu_torch.models.fc_network import identity_transforms
+from mjrl_tpu_torch.parallel import make_mesh
 from mjrl_tpu_torch.physics.model import State
 from mjrl_tpu_torch.samplers import rollout as trollout
 
 from test_torch_kernel_host import golden_env_states, limit_active_states
 from test_torch_policy import numpy_params, to_jax
 from test_torch_mjcf_m9b import one_torch_thread  # noqa: F401
+from test_torch_parallel_mesh import RowsOnly
 
 B, T, HID = 16, 20, (16, 16)
 STEP_TOL, ROLLOUT_TOL = 1e-10, 1e-8
@@ -303,21 +305,27 @@ def test_sample_paths_and_samples_mode(envs):
 
 @pytest.mark.parametrize("kwargs, match", [
     pytest.param({"autoreset": True}, None, id="kwargs0-queue 1"),
-    pytest.param({"mesh": object()}, "M11", id="kwargs1-M11")])
+    pytest.param({"mesh": 2}, "M11", id="kwargs1-M11")])
 def test_unported_rollout_options_raise(envs, policies, kwargs, match):
-    """``mesh`` (M11) raises; ``autoreset`` (queue 1, ported) runs: on the
+    """Both options, once refused, run.  ``autoreset`` (queue 1): on the
     Swimmer, which never ends an episode, it is the plain rollout with a
-    ``dones`` grid of zeros."""
+    ``dones`` grid of zeros.  ``mesh`` (M11): the rows of rank r of 2 are
+    the plain rollout's rows r * B / 2 ... (r + 1) * B / 2 exactly (the
+    drawn resets and noise are the whole batch's) and issue no collective,
+    and a one-rank mesh is the plain rollout."""
     _, tenv = envs
     _, (tcfg, tp, tt) = policies
-    if match is not None:
-        with pytest.raises(NotImplementedError, match=match):
-            trollout.rollout_batch(tenv, tcfg, tp, tt, None, 2, horizon=2,
-                                   **kwargs)
-        return
-    roll = lambda **kw: trollout.rollout_batch(
-        tenv, tcfg, tp, tt, torch.Generator().manual_seed(3), 2, horizon=2,
+    roll = lambda n=2, **kw: trollout.rollout_batch(
+        tenv, tcfg, tp, tt, torch.Generator().manual_seed(3), n, horizon=2,
         **kw)
+    if match is not None:     # B rows: a rank's policy forward is a GEMM
+        plain = roll(B)
+        halves = [roll(B, mesh=RowsOnly(r, kwargs["mesh"]))
+                  for r in range(kwargs["mesh"])]
+        for k in ("observations", "actions", "rewards", "mask", "last_obs"):
+            close(torch.cat([h[k] for h in halves]), plain[k], 0.0)
+            close(roll(B, mesh=make_mesh())[k], plain[k], 0.0)
+        return
     got, plain = roll(**kwargs), roll()
     assert got["dones"].shape == (2, 2)
     assert float(got["dones"].abs().sum()) == 0.0

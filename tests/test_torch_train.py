@@ -24,6 +24,7 @@ from mjrl_tpu_torch.envs import GymEnv
 from mjrl_tpu_torch.envs.gym_suite import HopperEnv
 from mjrl_tpu_torch.envs.swimmer import SwimmerEnv
 from mjrl_tpu_torch.models.policies import MLP
+from mjrl_tpu_torch.parallel import make_mesh
 from mjrl_tpu_torch.samplers.rollout import sample_paths
 from mjrl_tpu_torch.utils import process_samples as tps
 from mjrl_tpu_torch.utils.logger import DataLog
@@ -177,8 +178,9 @@ def test_agent_rejects_mixed_devices_and_unported_options():
     baseline = LinearBaseline(e.spec, device="cpu")
     with pytest.raises(ValueError, match="lives on"):
         NPG(e, policy, baseline, device="meta")
-    with pytest.raises(NotImplementedError, match="M11"):
-        NPG(e, policy, baseline, device="cpu", mesh=object())
+    # the mesh (M11) is ported: the agent keeps it for train_step
+    mesh = make_mesh()
+    assert NPG(e, policy, baseline, device="cpu", mesh=mesh).mesh is mesh
     # autoreset (queue 1) is ported: the agent takes it
     assert NPG(e, policy, baseline, device="cpu", autoreset=True).autoreset
     assert not NPG(e, policy, baseline, device="cpu").autoreset

@@ -174,6 +174,28 @@ def test_ppo_two_updates_match_jax(env, case):
         assert float(st_t["surr_after"]) > float(st_t["surr_before"])
 
 
+def test_ppo_surrogate_matches_jax(env):
+    """The clipped surrogate at moved parameters, with and without a mask,
+    against the JAX package's ``ppo_surrogate``."""
+    jagent, tagent, jp, tp = ppo_pair(env, [-0.3, 0.1, -1.0, 0.0], 3e-3)
+    obs, act, adv, mask = on_policy_batch(tp, 40)
+    rng = np.random.RandomState(41)
+    p_new = {k: v + 0.3 * T64(rng.normal(size=tuple(v.shape)))
+             for k, v in tp.params.items()}
+    jp_new = to_jax(convert.params_to_numpy(p_new))
+    ll_old = tF.log_likelihoods(tp.config, tp.params, tp.transforms,
+                                T64(obs), T64(act))
+    J = jnp.asarray
+    for m in (None, mask):
+        got = tagent.ppo_surrogate(p_new, ll_old, tp.transforms, T64(obs),
+                                   T64(act), T64(adv),
+                                   None if m is None else T64(m))
+        want = jagent.ppo_surrogate(jp_new, jp.params, jp.transforms,
+                                    J(obs), J(act), J(adv),
+                                    None if m is None else J(m))
+        close(got, want, 1e-12)
+
+
 def test_ppo_update_draws_indices_from_the_generator(env):
     _, tagent, _, tp = ppo_pair(env, [-0.3, 0.1, -1.0, 0.0], 3e-3)
     obs, act, adv, mask = (T64(a) for a in on_policy_batch(tp, 30))
