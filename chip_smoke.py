@@ -216,6 +216,32 @@ printing its seconds and its launches of K1 and K2 (per rank):
             Two ranks on one card measure correctness and overhead, not
             scaling.  The pair has 300 s; a failing rank stops the other.
 
+M11 on every card of one host, as a user runs it (``m11_cards``): R fresh
+processes of this script started by ``torchrun --standalone
+--nproc-per-node R`` (``--cards-rank``), each joining through
+parallel.distributed.initialize() and global_mesh() and loading the build
+phase's kernels: R = 4 over NCCL, one rank per card, on a host of four
+cards or more; else R = 2 over gloo (asked for) sharing the one card.  The
+line ``m11_cards`` says which ran; torchrun stops the other ranks when one
+fails, and this process stops torchrun after 420 s.
+
+46. m11_cards  Hopper-v3 NPG at 4096 x 1000 (m11_hopper_iteration's agent)
+            through train_agent on the R ranks: 2 iterations with save_freq
+            1, a resume for 1 more, 3 uninterrupted; against train_agent's
+            first 2 iterations on one rank in this process: the first
+            iteration's statistics equal, parameters, alpha, kl_dist and the
+            step's norm within PR 11's bounds, the job directory's files
+            equal; the resumed run equal to the uninterrupted one bit for
+            bit on every rank, each resumed policy on its rank's card; 1000
+            K2 launches per rank and iteration.  swimmer_ppo.json (10
+            swimmers, 12 at R = 4) and a 4-member float64 ensemble against
+            one rank (1e-12); one K2 and one K1 launch on each rank's 4096 /
+            R rows against the plain version.  Printed per rank, not held:
+            seconds per iteration, launches, collectives and their host
+            seconds, the device's busy share over a 20-step rollout window.
+            On four cards, Hopper NPG seconds per iteration at R = 1, 2 and
+            4: strong (4096 rows split R ways) and weak (R x 4096 rows).
+
 Each phase's launches are counted from just before it to just after.  The
 last line is {"ok": true, "device": {...}}.
 """
@@ -2394,11 +2420,12 @@ def phase_native_paths_hopper():
     return counts
 
 
-def hopper_npg_agent(seed):
+def hopper_npg_agent(seed, mesh=None):
+    """Hopper-v3 NPG: 64-64 policy, LinearBaseline, step 0.05."""
     e = GymEnv("Hopper-v3")
     policy = MLP(e.spec, hidden_sizes=(64, 64), seed=seed)
     return NPG(e, policy, LinearBaseline(e.spec), normalized_step_size=0.05,
-               seed=seed, save_logs=True)
+               seed=seed, save_logs=True, mesh=mesh)
 
 
 def phase_checkpoint_resume_hopper():
@@ -2803,18 +2830,15 @@ def update_step(params, params0):
             "step_max_abs": float(np.abs(d).max())}
 
 
-def m11_hopper_iteration(mesh=None):
-    """One Hopper-v3 NPG iteration at 4096 x 1000 (64-64 policy,
+def m11_hopper_iteration(mesh=None, num_envs=NUM_ENVS):
+    """One Hopper-v3 NPG iteration at num_envs x 1000 (64-64 policy,
     LinearBaseline) through NPG(..., mesh=mesh), seed 21."""
-    e = GymEnv("Hopper-v3")
-    policy = MLP(e.spec, hidden_sizes=(64, 64), seed=21)
-    agent = NPG(e, policy, LinearBaseline(e.spec), normalized_step_size=0.05,
-                seed=21, save_logs=True, mesh=mesh)
+    agent = hopper_npg_agent(21, mesh)
     c0 = 0 if mesh is None else mesh.collectives
     s0 = 0.0 if mesh is None else mesh.collective_seconds
     params0 = agent.policy.get_param_values()
     t0 = time.time()
-    stats = agent.train_step(N=NUM_ENVS, horizon=HOPPER_HORIZON,
+    stats = agent.train_step(N=num_envs, horizon=HOPPER_HORIZON,
                              gamma=0.995, gae_lambda=0.97)
     torch.cuda.synchronize()
     log = {k: v[-1] for k, v in agent.logger.log.items()}
@@ -2831,13 +2855,16 @@ def m11_hopper_iteration(mesh=None):
             else mesh.collective_seconds - s0}
 
 
-def m11_swimmer_ppo_iteration(mesh=None):
+def m11_swimmer_ppo_iteration(mesh=None, num_traj=None):
     """One iteration of examples/example_configs/swimmer_ppo.json (PPO +
-    MLPBaseline, 10 x 500) built by the job script's build_agent, with the
-    mesh passed through the config's alg_hyper_params."""
+    MLPBaseline, 10 x 500, or num_traj x 500) built by the job script's
+    build_agent, with the mesh passed through the config's
+    alg_hyper_params."""
     job = load_config(os.path.join(EXAMPLES, "example_configs",
                                    "swimmer_ppo.json"))
     job["alg_hyper_params"] = {**job["alg_hyper_params"], "mesh": mesh}
+    if num_traj is not None:
+        job["rl_num_traj"] = num_traj
     agent = job_script().build_agent(job)
     c0 = 0 if mesh is None else mesh.collectives
     s0 = 0.0 if mesh is None else mesh.collective_seconds
@@ -3047,7 +3074,8 @@ def m11_compare(phase, rank_res, ref):
             diffs[f"{k}_max_abs"] = max(diffs[f"{k}_max_abs"],
                                         float(np.abs(a - b).max()))
             diffs[f"{k}_rel"] = max(diffs[f"{k}_rel"], rel_diff(a, b))
-    if rank_res[0][phase]["params"] != rank_res[1][phase]["params"]:
+    if any(r[phase]["params"] != rank_res[0][phase]["params"]
+           for r in rank_res[1:]):
         raise AssertionError(f"{phase}: the ranks' policies differ")
     diffs["one_rank_update"] = ref["update"]
     diffs["params_atol_over_step_max_abs"] = \
@@ -3175,6 +3203,393 @@ def phase_m11(kernel, contact):
           "two_rank_processes_seconds": pair_s})
     emit({"phase": "m11", "phase_seconds": phase_seconds,
           "seconds": sum(phase_seconds.values())})
+    return {"swimmer_ppo": ppo_ref}
+
+
+# ---------------------------------------------------------------------------
+# M11 on every card of one host: torchrun, initialize(), train_agent
+# ---------------------------------------------------------------------------
+
+CARDS_TIMEOUT_S = 420       # the R rank processes, start-up included
+CARDS_ENSEMBLE_BOUND = 1e-12
+CARDS_PROFILE_STEPS = 20    # control steps of the busy-share window
+
+
+def cards_world():
+    """(R, backend): four ranks over NCCL, one per card, on a host of four
+    cards or more; else two over gloo (asked for) sharing the one card."""
+    if torch.cuda.device_count() >= 4:
+        return 4, "nccl"
+    return 2, "gloo"
+
+
+def job_files(job):
+    return sorted(os.path.relpath(os.path.join(d, f), job)
+                  for d, _, fs in os.walk(job) for f in fs)
+
+
+def timed_steps(agent, mesh, record):
+    """Wrap agent.train_step: each call appends its seconds, its
+    collectives and their host seconds, its statistics, the parameters
+    after it and what the update moved."""
+    step = agent.train_step
+
+    def timed(*args, **kwargs):
+        c0 = 0 if mesh is None else mesh.collectives
+        s0 = 0.0 if mesh is None else mesh.collective_seconds
+        params0 = agent.policy.get_param_values()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        stats = step(*args, **kwargs)
+        torch.cuda.synchronize()
+        seconds = time.time() - t0
+        log = {k: v[-1] for k, v in agent.logger.log.items()}
+        params = agent.policy.get_param_values()
+        record.append({
+            "seconds": seconds, "stats": list(stats[:4]),
+            "params": params.tolist(),
+            "update": {"alpha": log["alpha"], "kl_dist": log["kl_dist"],
+                       **update_step(params, params0)},
+            "collectives": 0 if mesh is None else mesh.collectives - c0,
+            "collective_seconds": 0.0 if mesh is None
+            else mesh.collective_seconds - s0})
+        return stats
+    agent.train_step = timed
+
+
+def cards_train_agent(mesh, root):
+    """Hopper-v3 NPG at 4096 x 1000 through train_agent (the agent of
+    m11_hopper_iteration): 2 iterations with save_freq 1, a resume for 1
+    more, and 3 uninterrupted iterations -> what the parent checks."""
+    kw = dict(seed=0, gamma=0.995, gae_lambda=0.97, num_traj=NUM_ENVS,
+              save_freq=1)
+    job, whole = os.path.join(root, "job"), os.path.join(root, "whole")
+    runs, out = {}, {}
+    for name, path, niter in (("first", job, 2), ("resumed", job, 3),
+                              ("whole", whole, 3)):
+        agent, record = hopper_npg_agent(21, mesh), []
+        timed_steps(agent, mesh, record)
+        with contextlib.redirect_stdout(sys.stderr):
+            _, counts, seconds = run_counted(
+                lambda: train_agent(path, agent, niter=niter, **kw))
+        runs[name] = agent
+        out[name] = {"iterations": record, "kernel_launches": counts,
+                     "seconds": seconds}
+        if name == "first":
+            out["files"] = job_files(job)
+    out["files_after_resume"] = job_files(job)
+    a, b = runs["resumed"], runs["whole"]
+    same = {
+        "params": bool(np.array_equal(a.policy.get_param_values(),
+                                      b.policy.get_param_values())),
+        "baseline": bool(torch.equal(a.baseline.state, b.baseline.state)),
+        "generator": bool(torch.equal(a.generator.get_state(),
+                                      b.generator.get_state())),
+        "policy_generator": bool(torch.equal(
+            a.policy.generator.get_state(), b.policy.generator.get_state())),
+        "stats": out["resumed"]["iterations"][-1]["stats"]
+        == out["whole"]["iterations"][-1]["stats"]}
+    out["resume_bitwise"] = same
+    out["resumed_policy_device"] = str(a.policy.device)
+    out["resumed_baseline_device"] = str(a.baseline.state.device)
+    return out, a
+
+
+def m11_smooth_launch_check(mesh):
+    """One launch of K1 on this rank's rows of a 4096-row Swimmer batch
+    against the plain version on the same inputs, at the float32 bounds of
+    the kernels phase -> max abs errors."""
+    p = SwimmerEnv()._planar
+    q, v, u = (torch.tensor(a, dtype=torch.float32, device=mesh.device)
+               [mesh.rows(NUM_ENVS)] for a in swimmer_test_states(
+                   NUM_ENVS, seed=5))
+    gq, gv = cuda_planar.cuda_step_n_batched(p, q, v, u, FRAME_SKIP)
+    rq, rv = step_n_arrays(p, q, v, u, FRAME_SKIP)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(gq, rq, rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(gv, rv, rtol=2e-4, atol=2e-4)
+    return {"rows": int(q.shape[0]), "max_abs_err_q": (gq - rq).abs().max()
+            .item(), "max_abs_err_v": (gv - rv).abs().max().item(),
+            "tolerance": [2e-5, 2e-4]}
+
+
+def cards_busy_share(agent, mesh):
+    """The device's busy share and launches per control step over a
+    CARDS_PROFILE_STEPS-step rollout of this rank's rows."""
+    fenv, pol = agent.fenv, agent.policy
+    launches, busy, window_ms = profiled_window(
+        lambda: rollout_batch(fenv, pol.config, pol.params, pol.transforms,
+                              make_generator(1, mesh.device), NUM_ENVS,
+                              horizon=CARDS_PROFILE_STEPS, mesh=mesh),
+        CARDS_PROFILE_STEPS)
+    return {"launches_per_step": launches, "busy_share": busy,
+            "window_ms": window_ms, "steps": CARDS_PROFILE_STEPS}
+
+
+def cards_scaling(mesh, repeats=2):
+    """Hopper NPG seconds per iteration at R = 1, 2 and 4 on this host's
+    cards: strong (4096 rows split R ways) and weak (R x 4096 rows), each
+    run ``repeats`` times in turns; the ranks outside a run wait at a
+    barrier, and a group's communicator is built before its clock
+    starts."""
+    import torch.distributed as dist
+    from mjrl_tpu_torch.parallel.mesh import Mesh
+    groups = {2: dist.new_group([0, 1]), 4: dist.group.WORLD}
+    out = {}
+    for R in (1, 2, 4) * repeats:
+        for kind, rows in (("strong", NUM_ENVS), ("weak", R * NUM_ENVS)):
+            if R == 1 and kind == "weak":
+                continue                # the same run as strong
+            if mesh.rank < R:
+                sub = None if R == 1 else Mesh(groups[R], mesh.rank, R,
+                                               mesh.device)
+                if sub is not None:
+                    sub.barrier()
+                (r, counts, _) = run_counted(
+                    lambda: m11_hopper_iteration(sub, rows))
+                out.setdefault(f"R{R}_{kind}", []).append({
+                    "rows": rows, "rows_per_rank": rows // R,
+                    "seconds": r["seconds"],
+                    "time_sampling": r["time_sampling"],
+                    "time_npg": r["time_npg"], "time_VF": r["time_VF"],
+                    "control_steps_per_s": rows * HOPPER_HORIZON
+                    / r["seconds"],
+                    "num_samples": r["num_samples"],
+                    "collectives": r["collectives"],
+                    "collective_seconds": r["collective_seconds"],
+                    "kernel_launches": counts})
+            mesh.barrier()
+    return out
+
+
+def cards_worker(out_dir, backend, scaling):
+    """One rank of m11_cards, started by torchrun (``chip_smoke.py
+    --cards-rank``): the group through parallel.distributed.initialize()
+    and global_mesh(), as a user's script joins it; the kernels come from
+    the build phase's libraries."""
+    import torch.distributed as dist
+    from mjrl_tpu_torch.parallel import distributed as pdist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.time()
+    if backend == "gloo":         # ranks sharing the one card
+        pdist.initialize(backend="gloo", local_device_ids=[0],
+                         timeout=M11_GROUP_TIMEOUT_S)
+    else:
+        pdist.initialize(timeout=M11_GROUP_TIMEOUT_S)
+    mesh = pdist.global_mesh()
+    res = {"rank": mesh.rank, "world": mesh.size, "mesh": repr(mesh),
+           "device": str(mesh.device), "backend": dist.get_backend(),
+           "local_rank": int(os.environ["LOCAL_RANK"])}
+    built = {name: cuda_planar.kernel_build_info(env._planar)
+             ["build_seconds"] for name, env in
+             (("hopper", HopperEnv()), ("swimmer", SwimmerEnv()))}
+    if any(built.values()):
+        raise AssertionError(f"rank {mesh.rank} built a kernel: {built}")
+    res["hopper"], resumed = cards_train_agent(mesh, out_dir)
+    for r in range(mesh.size):      # one profiler at a time
+        if r == mesh.rank:
+            res["busy"] = cards_busy_share(resumed, mesh)
+        mesh.barrier()
+    num_traj = -(-10 // mesh.size) * mesh.size
+    out, counts, seconds = run_counted(
+        lambda: m11_swimmer_ppo_iteration(mesh, num_traj))
+    res["swimmer_ppo"] = {**out, "num_traj": num_traj,
+                          "kernel_launches": counts,
+                          "counted_seconds": seconds}
+    res["ensemble"], res["ensemble_launches"], _ = run_counted(
+        lambda: m11_ensemble(mesh))
+    res["contact_check"] = m11_contact_launch_check(mesh)
+    res["smooth_check"] = m11_smooth_launch_check(mesh)
+    if scaling:
+        res["scaling"] = cards_scaling(mesh)
+    res["seconds"] = time.time() - t0
+    mesh.barrier()
+    dist.destroy_process_group()
+    with open(os.path.join(out_dir, f"rank{res['rank']}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def run_cards_ranks(tmp, world, backend, scaling):
+    """torchrun starting ``world`` ranks of this script; it stops the other
+    ranks when one fails, and this process stops it at the deadline ->
+    every rank's results."""
+    import signal
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc-per-node={world}", os.path.abspath(__file__),
+           "--cards-rank", "--cards-out", tmp, "--cards-backend", backend]
+    if scaling:
+        cmd.append("--cards-scaling")
+    p = subprocess.Popen(cmd, cwd=HERE, stdout=subprocess.PIPE,
+                         stderr=subprocess.STDOUT, text=True,
+                         start_new_session=True)
+    try:
+        log = p.communicate(timeout=CARDS_TIMEOUT_S)[0]
+    except subprocess.TimeoutExpired:
+        os.killpg(p.pid, signal.SIGKILL)
+        log = p.communicate()[0]
+    finally:
+        if p.poll() is None:
+            os.killpg(p.pid, signal.SIGKILL)
+            p.wait()
+    if p.returncode != 0:
+        print(log[-12000:], file=sys.stderr)
+        raise AssertionError(f"torchrun of {world} ranks failed (rc "
+                             f"{p.returncode}) or passed {CARDS_TIMEOUT_S} s")
+    res = []
+    for r in range(world):
+        with open(os.path.join(tmp, f"rank{r}.json")) as f:
+            res.append(json.load(f))
+    return res
+
+
+def phase_m11_cards(kernel, contact, m11_refs):
+    """M11 on every card of one host, through torchrun and
+    parallel.distributed.initialize(): four ranks over NCCL, one per card,
+    on a host of four cards or more, else two over gloo on the one card.
+    Hopper-v3 NPG through train_agent (2 iterations, a resume for 1 more,
+    3 uninterrupted), swimmer_ppo.json, a 4-member ensemble and each
+    rank's K2 and K1 launches, against one rank in this process."""
+    world, backend = cards_world()
+    scaling = world == 4
+    t_start = time.time()
+    ens_ref = m11_ensemble()
+    num_traj = -(-10 // world) * world
+    ppo_ref = m11_swimmer_ppo_iteration(None, num_traj) \
+        if num_traj != 10 else m11_refs["swimmer_ppo"]
+    with tempfile.TemporaryDirectory() as tmp:
+        one_dir, ranks_dir = os.path.join(tmp, "one"), \
+            os.path.join(tmp, "ranks")
+        os.makedirs(ranks_dir)
+        # one rank on card 0: train_agent's first 2 iterations
+        agent, record = hopper_npg_agent(21), []
+        timed_steps(agent, None, record)
+        with contextlib.redirect_stdout(sys.stderr):
+            train_agent(os.path.join(one_dir, "job"), agent, niter=2,
+                        seed=0, gamma=0.995, gae_lambda=0.97,
+                        num_traj=NUM_ENVS, save_freq=1)
+        one_files = job_files(os.path.join(one_dir, "job"))
+        t0 = time.time()
+        ranks = run_cards_ranks(ranks_dir, world, backend, scaling)
+        ranks_s = time.time() - t0
+    hopper_ref = record[0]
+    for r in ranks:
+        exp_dev = f"cuda:{r['rank'] if backend == 'nccl' else 0}"
+        h = r["hopper"]
+        for name, n in (("first", 2), ("resumed", 1), ("whole", 3)):
+            if h[name]["kernel_launches"] != {CONTACT: n * HOPPER_HORIZON,
+                                              SMOOTH: 0}:
+                raise AssertionError(f"m11_cards: rank {r['rank']} {name} "
+                                     f"launched {h[name]['kernel_launches']}")
+        if r["device"] != exp_dev or h["resumed_policy_device"] != exp_dev \
+                or h["resumed_baseline_device"] != exp_dev:
+            raise AssertionError(f"m11_cards: rank {r['rank']} on "
+                                 f"{r['device']}, its resumed policy on "
+                                 f"{h['resumed_policy_device']}, expected "
+                                 f"{exp_dev}")
+        if h["files"] != one_files:
+            raise AssertionError(f"m11_cards: the job directory holds "
+                                 f"{h['files']}, one rank's {one_files}")
+        if not all(h["resume_bitwise"].values()):
+            raise AssertionError(f"m11_cards: rank {r['rank']}: the resumed "
+                                 f"run against the uninterrupted "
+                                 f"{h['resume_bitwise']}")
+        if h["first"]["iterations"][0]["stats"] != hopper_ref["stats"]:
+            raise AssertionError(
+                f"m11_cards: rank {r['rank']} first iteration's statistics "
+                f"{h['first']['iterations'][0]['stats']} against one rank's "
+                f"{hopper_ref['stats']}")
+        if r["contact_check"]["rows"] != NUM_ENVS // world \
+                or r["smooth_check"]["rows"] != NUM_ENVS // world:
+            raise AssertionError("m11_cards: the launch checks took "
+                                 f"{r['contact_check']['rows']} / "
+                                 f"{r['smooth_check']['rows']} rows")
+        if r["swimmer_ppo"]["kernel_launches"] != {SMOOTH: HORIZON,
+                                                   CONTACT: 0} \
+                or r["ensemble_launches"] != NO_LAUNCHES:
+            raise AssertionError(f"m11_cards: rank {r['rank']} launched "
+                                 f"{r['swimmer_ppo']['kernel_launches']} / "
+                                 f"{r['ensemble_launches']}")
+    hopper_diffs = m11_compare(
+        "first_iteration",
+        [{"rank": r["rank"],
+          "first_iteration": r["hopper"]["first"]["iterations"][0]}
+         for r in ranks], hopper_ref)
+    ppo_diffs = m11_compare("swimmer_ppo", ranks, ppo_ref)
+    ens = {k: max(rel_diff(r["ensemble"][k], ens_ref[k]) for r in ranks)
+           for k in ("losses", "params", "predict_all")}
+    if not max(ens.values()) <= CARDS_ENSEMBLE_BOUND:
+        raise AssertionError(f"m11_cards: ensemble against one rank {ens}")
+    per_iter = lambda r, name: [it["seconds"] for it in
+                                r["hopper"][name]["iterations"]]
+    emit({"phase": "m11_cards", "launcher": "torchrun --standalone "
+          f"--nproc-per-node {world}", "backend": backend, "world": world,
+          "ran": f"{world} ranks over {backend}, "
+          + ("one per card" if backend == "nccl" else "sharing the one card"),
+          "rows_per_rank": NUM_ENVS // world,
+          "hopper_diff_to_one_rank": hopper_diffs,
+          "first_iteration_stats_equal": True,
+          "resume_bitwise": [r["hopper"]["resume_bitwise"] for r in ranks],
+          "job_files": one_files,
+          "devices": [r["device"] for r in ranks],
+          "resumed_policy_devices": [r["hopper"]["resumed_policy_device"]
+                                     for r in ranks],
+          "swimmer_ppo_num_traj": num_traj, "swimmer_ppo_diff": ppo_diffs,
+          "ensemble_max_rel_diff": ens, "ensemble_bound":
+              CARDS_ENSEMBLE_BOUND,
+          "k2_against_plain": [r["contact_check"] for r in ranks],
+          "k1_against_plain": [r["smooth_check"] for r in ranks],
+          "bounds": {"stats": "equal", "params": M11_PARAMS_BOUND,
+                     "update_rtol": M11_UPDATE_RTOL}})
+    emit({"phase": "m11_cards_numbers",
+          "note": "per rank; not limits",
+          "one_rank_seconds_per_iteration": [it["seconds"]
+                                             for it in record],
+          "seconds_per_iteration": {
+              name: [per_iter(r, name) for r in ranks]
+              for name in ("first", "resumed", "whole")},
+          "kernel_launches": {
+              "hopper_train_agent": [
+                  {k: sum(r["hopper"][n]["kernel_launches"][k]
+                          for n in ("first", "resumed", "whole"))
+                   for k in (SMOOTH, CONTACT)} for r in ranks],
+              "swimmer_ppo": [r["swimmer_ppo"]["kernel_launches"]
+                              for r in ranks]},
+          "collectives_per_iteration": [
+              [it["collectives"] for it in r["hopper"]["whole"]
+               ["iterations"]] for r in ranks],
+          "collective_seconds_per_iteration": [
+              [it["collective_seconds"] for it in r["hopper"]["whole"]
+               ["iterations"]] for r in ranks],
+          "swimmer_ppo_seconds": [r["swimmer_ppo"]["seconds"]
+                                  for r in ranks],
+          "swimmer_ppo_seconds_one_rank": ppo_ref["seconds"],
+          "swimmer_ppo_collectives": [r["swimmer_ppo"]["collectives"]
+                                      for r in ranks],
+          "swimmer_ppo_collective_seconds": [
+              r["swimmer_ppo"]["collective_seconds"] for r in ranks],
+          "busy": [r["busy"] for r in ranks],
+          "rank_process_seconds": [r["seconds"] for r in ranks],
+          "torchrun_seconds": ranks_s})
+    if scaling:
+        emit({"phase": "m11_cards_scaling", "rows_per_card": NUM_ENVS,
+              "runs": ranks[0]["scaling"],
+              "by_rank": [r.get("scaling") for r in ranks]})
+    else:
+        emit({"phase": "m11_cards_scaling", "measured": False,
+              "reason": f"{torch.cuda.device_count()} card(s): scaling over "
+              "cards needs four"})
+    launches = {
+        "m11_cards_hopper": [
+            {k: sum(r["hopper"][n]["kernel_launches"][k]
+                    for n in ("first", "resumed", "whole"))
+             for k in (SMOOTH, CONTACT)} for r in ranks],
+        "m11_cards_swimmer_ppo": [r["swimmer_ppo"]["kernel_launches"]
+                                  for r in ranks],
+        "m11_cards_ensemble": [r["ensemble_launches"] for r in ranks]}
+    for name, per_rank in launches.items():
+        kernel["launches_by_path"][name] = [c[SMOOTH] for c in per_rank]
+        contact["launches_by_path"][name] = [c[CONTACT] for c in per_rank]
+    emit({"phase": "m11_cards_block", "seconds": time.time() - t_start})
 
 
 def main():
@@ -3310,7 +3725,10 @@ def main():
               "seconds": sum(phase_seconds.values())})
         # M11: data parallelism over ranks
         phase = "m11"
-        phase_m11(kernel, contact)
+        m11_refs = phase_m11(kernel, contact)
+        # M11 on every card of one host, through torchrun
+        phase = "m11_cards"
+        phase_m11_cards(kernel, contact, m11_refs)
     except Exception:
         traceback.print_exc()
         print(f"chip_smoke: phase '{phase}' failed", file=sys.stderr)
@@ -3325,7 +3743,17 @@ def main():
 
 
 if __name__ == "__main__":
-    if "--m11-rank" in sys.argv:           # one rank of the M11 phases
+    if "--cards-rank" in sys.argv:         # one rank of m11_cards (torchrun)
+        import argparse
+        ap = argparse.ArgumentParser()
+        ap.add_argument("--cards-rank", action="store_true")
+        ap.add_argument("--cards-out", required=True)
+        ap.add_argument("--cards-backend", choices=("gloo", "nccl"),
+                        required=True)
+        ap.add_argument("--cards-scaling", action="store_true")
+        args = ap.parse_args()
+        cards_worker(args.cards_out, args.cards_backend, args.cards_scaling)
+    elif "--m11-rank" in sys.argv:         # one rank of the M11 phases
         import argparse
         ap = argparse.ArgumentParser()
         for name, typ in (("--m11-rank", int), ("--m11-world", int),

@@ -35,7 +35,8 @@ import numpy as np
 import torch
 
 from mjrl_tpu_torch.algos import functional as F
-from mjrl_tpu_torch.device import make_generator, resolve_device
+from mjrl_tpu_torch.device import (make_generator, resolve_device,
+                                   restore_generator, unpickled_device)
 from mjrl_tpu_torch.ops.flat import tree_to
 from mjrl_tpu_torch.ops.gae import (discounted_returns, gae_advantages,
                                     gae_with_dones, returns_with_dones,
@@ -83,11 +84,13 @@ class BatchREINFORCE:
         self.autoreset = bool(kwargs.get("autoreset", False))
         self._has_opt_state = False
 
-    # -- pickling: the generator travels as its state, tensors on the CPU --
+    # -- pickling: the generator travels as its state, tensors on the CPU; --
+    # -- the mesh stays behind (a process group does not pickle) ------------
     def __getstate__(self):
         state = self.__dict__.copy()
         state["generator"] = self.generator.get_state()
         state["device"] = str(self.device)
+        state["mesh"] = None
         if "opt_state" in state:
             state["opt_state"] = tree_to(self.opt_state, "cpu")
         return state
@@ -95,17 +98,11 @@ class BatchREINFORCE:
     def __setstate__(self, state):
         gen_state = state.pop("generator")
         self.__dict__.update(state)
-        dev = torch.device(self.device)
-        if dev.type == "cuda" and not torch.cuda.is_available():
-            dev = torch.device("cpu")
-        self.device = dev
+        saved = self.device
+        self.device = dev = unpickled_device(saved)
         if "opt_state" in state:
             self.opt_state = tree_to(self.opt_state, dev)
-        self.generator = torch.Generator(device=dev)
-        try:
-            self.generator.set_state(gen_state)
-        except RuntimeError:      # state saved by another device kind
-            self.generator.manual_seed(self.seed)
+        self.generator = restore_generator(gen_state, dev, self.seed, saved)
 
     # -- plumbing --------------------------------------------------------
     @property

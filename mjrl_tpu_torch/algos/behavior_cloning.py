@@ -22,7 +22,8 @@ import numpy as np
 import torch
 
 from mjrl_tpu_torch import distributions as dist
-from mjrl_tpu_torch.device import make_generator, resolve_device
+from mjrl_tpu_torch.device import (make_generator, resolve_device,
+                                   restore_generator, unpickled_device)
 from mjrl_tpu_torch.ops.adam import adam_init, adam_step_
 from mjrl_tpu_torch.ops.flat import tree_to
 from mjrl_tpu_torch.utils.logger import DataLog
@@ -93,20 +94,14 @@ class BC:
     def __setstate__(self, state):
         gen_state = state.pop("generator")
         self.__dict__.update(state)
-        dev = torch.device(self.device)
-        if dev.type == "cuda" and not torch.cuda.is_available():
-            dev = torch.device("cpu")
-        self.device = dev
+        saved = self.device
+        self.device = dev = unpickled_device(saved)
         if self._optimizer is None:
             self.opt_state = tree_to(self.opt_state, dev)
         else:
             self._build_optimizer(tree_to(self._opt_params, dev),
                                   self._torch_opt)
-        self.generator = torch.Generator(device=dev)
-        try:
-            self.generator.set_state(gen_state)
-        except RuntimeError:      # state saved by another device kind
-            self.generator.manual_seed(self.seed)
+        self.generator = restore_generator(gen_state, dev, self.seed, saved)
 
     # -- transforms ----------------------------------------------------------
     def compute_transformations(self):

@@ -28,7 +28,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from mjrl_tpu_torch.device import make_generator, resolve_device
+from mjrl_tpu_torch.device import (make_generator, resolve_device,
+                                   restore_generator, unpickled_device)
 from mjrl_tpu_torch.models.fc_network import init_mlp_params, num_layers
 from mjrl_tpu_torch.ops.adam import adam_copy, adam_init, adam_step_
 from mjrl_tpu_torch.ops.flat import tree_to
@@ -289,18 +290,12 @@ class WorldModel:
     def __setstate__(self, state):
         gen_state = state.pop("generator")
         self.__dict__.update(state)
-        dev = torch.device(self.device)
-        if dev.type == "cuda" and not torch.cuda.is_available():
-            dev = torch.device("cpu")
-        self.device = dev
+        saved = self.device
+        self.device = dev = unpickled_device(saved)
         for k in self._TREES:
             if k in state:
                 setattr(self, k, tree_to(state[k], dev))
-        self.generator = torch.Generator(device=dev)
-        try:
-            self.generator.set_state(gen_state)
-        except RuntimeError:      # state saved by another device kind
-            self.generator.manual_seed(self.seed)
+        self.generator = restore_generator(gen_state, dev, self.seed, saved)
 
     def is_cuda(self):
         return self.device.type == "cuda"
@@ -451,11 +446,8 @@ class WorldModelEnsemble:
 
     def __setstate__(self, state):
         self.__dict__.update(state)
-        dev = torch.device(self.device)
-        if dev.type == "cuda" and not torch.cuda.is_available():
-            dev = torch.device("cpu")
-        self.device = dev
-        self._dyn = tree_to(self._dyn, dev)
+        self.device = unpickled_device(self.device)
+        self._dyn = tree_to(self._dyn, self.device)
 
     # -- the members' slices ----------------------------------------------
     def _member_view(self, name, i):

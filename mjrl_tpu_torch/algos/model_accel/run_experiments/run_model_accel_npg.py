@@ -31,7 +31,7 @@ from mjrl_tpu_torch.algos.model_accel.reward_functions import \
     get_reward_function
 from mjrl_tpu_torch.algos.model_accel.sampling import evaluate_policy
 from mjrl_tpu_torch.baselines import MLPBaseline
-from mjrl_tpu_torch.device import resolve_device
+from mjrl_tpu_torch.device import load_pickle, resolve_device
 from mjrl_tpu_torch.envs.gym_env import GymEnv
 from mjrl_tpu_torch.models.policies import GaussianMLP, Policy
 from mjrl_tpu_torch.samplers.rollout import sample_data_batch
@@ -104,8 +104,7 @@ def run(output, job_data, device=None):
     models = ensemble(seed)
     policy = new_policy()
     if job_data.get("init_policy"):
-        with open(job_data["init_policy"], "rb") as f:
-            policy = pickle.load(f)
+        policy = load_pickle(job_data["init_policy"], device)
     baseline = MLPBaseline(e.spec, reg_coef=1e-3, batch_size=256, epochs=1,
                            learn_rate=1e-3, device=device)
     agent = ModelAccelNPG(

@@ -14,7 +14,8 @@ fit it runs.
 import numpy as np
 import torch
 
-from mjrl_tpu_torch.device import make_generator, resolve_device
+from mjrl_tpu_torch.device import (make_generator, resolve_device,
+                                   restore_generator, unpickled_device)
 from mjrl_tpu_torch.models import baselines as fb
 from mjrl_tpu_torch.ops.flat import tree_to
 
@@ -67,17 +68,12 @@ class _HostBaseline:
     def __setstate__(self, state):
         gen_state = state.pop("generator", None)
         self.__dict__.update(state)
-        dev = torch.device(self.device)
-        if dev.type == "cuda" and not torch.cuda.is_available():
-            dev = torch.device("cpu")
-        self.device = dev
+        saved = self.device
+        self.device = dev = unpickled_device(saved)
         self.state = tree_to(self.state, dev)
         if gen_state is not None:
-            self.generator = torch.Generator(device=dev)
-            try:
-                self.generator.set_state(gen_state)
-            except RuntimeError:      # state saved by another device kind
-                self.generator.manual_seed(self.seed)
+            self.generator = restore_generator(gen_state, dev, self.seed,
+                                               saved)
 
     def fit_state(self, state, obs, returns, mask, mesh=None):
         """The functional fit of ``state`` on batched tensors (this rank's

@@ -22,7 +22,8 @@ import torch
 from torch import nn
 
 from mjrl_tpu_torch import distributions as dist
-from mjrl_tpu_torch.device import make_generator, resolve_device
+from mjrl_tpu_torch.device import (make_generator, resolve_device,
+                                   restore_generator, unpickled_device)
 from mjrl_tpu_torch.models.fc_network import (
     Transforms, identity_transforms, init_linear_, make_transforms,
     mlp_forward)
@@ -148,11 +149,12 @@ class Policy:
     """Stateful host-side wrapper with the mjrl policy protocol.
 
     Holds (config module with the live params, old_params, transforms,
-    generator).  Pickles with every tensor on the CPU; unpickling moves
-    them back to the device they came from when it is available."""
+    generator).  Pickles with every tensor on the CPU; unpickles onto the
+    device the loader chooses (``device.unpickled_device``)."""
 
     def __init__(self, config: GaussianMLP, seed: int = 123):
         self.config = config
+        self.seed = int(seed)
         self.generator = make_generator(seed, self.device)
         _, self.transforms = config.init(self.generator)
         self.old_params = {k: v.clone() for k, v in self.params.items()}
@@ -188,20 +190,14 @@ class Policy:
         return state
 
     def __setstate__(self, state):
-        dev = torch.device(state.pop("_device"))
+        saved = state.pop("_device")
         gen_state = state.pop("generator")
         self.__dict__.update(state)
-        self.transforms = Transforms(*self.transforms)
-        if dev.type == "cuda" and not torch.cuda.is_available():
-            dev = torch.device("cpu")
+        dev = unpickled_device(saved)
         self.config.to(dev)
         self.old_params = {k: v.to(dev) for k, v in self.old_params.items()}
         self.transforms = Transforms(*(t.to(dev) for t in self.transforms))
-        self.generator = torch.Generator(device=dev)
-        try:
-            self.generator.set_state(gen_state)
-        except RuntimeError:      # state saved by another device kind
-            self.generator.manual_seed(123)
+        self.generator = restore_generator(gen_state, dev, self.seed, saved)
 
     # -- mjrl protocol --------------------------------------------------
     @property

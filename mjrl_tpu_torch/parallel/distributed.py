@@ -7,15 +7,20 @@ card), joins them in a process group, and issues the reductions itself
 (``parallel/mesh.py``).  Single-process use is the default: every helper
 reduces nothing when no process group was initialized.
 
-A launch on R cards of one host (the same script in every process)::
+A launch on every card of one host, the same script in every process,
+through PyTorch's own launcher (the port's counterpart of JAX seeing every
+local chip in one process)::
 
-    MJRL_COORDINATOR=localhost:29500 MJRL_NUM_PROCS=R MJRL_PROC_ID=<r> \\
-        python train.py
+    torchrun --standalone --nproc-per-node R train.py
 
     from mjrl_tpu_torch.parallel import distributed as dist
     dist.initialize()                    # env-driven; no-op without the vars
     mesh = dist.global_mesh()            # every rank of the group
     agent = NPG(..., mesh=mesh)          # each rank rolls out B / R rows
+    train_agent(job, agent, ...)         # rank 0 writes the job directory
+
+or, without ``torchrun``, ``MJRL_COORDINATOR=localhost:29500
+MJRL_NUM_PROCS=R MJRL_PROC_ID=<r> python train.py`` in each process.
 """
 
 import datetime
@@ -25,6 +30,7 @@ import numpy as np
 import torch
 import torch.distributed as tdist
 
+from mjrl_tpu_torch.device import default_device
 from mjrl_tpu_torch.parallel.mesh import BATCH_AXIS, all_reduce_sum, \
     make_mesh
 
@@ -33,37 +39,59 @@ DEFAULT_TIMEOUT_S = 300
 
 def initialize(coordinator_address=None, num_processes=None,
                process_id=None, local_device_ids=None, backend=None,
-               timeout=DEFAULT_TIMEOUT_S):
+               timeout=DEFAULT_TIMEOUT_S, device=None):
     """Join the process group from arguments or the environment.
 
-    Environment fallbacks (set by the launcher):
+    The environment, where an argument is not given:
       MJRL_COORDINATOR  host:port of rank 0
       MJRL_NUM_PROCS    number of processes (ranks)
       MJRL_PROC_ID      this process's rank
+    or, without MJRL_COORDINATOR, what ``torchrun`` sets: MASTER_ADDR and
+    MASTER_PORT, WORLD_SIZE, RANK and LOCAL_RANK.
 
-    No-op returning False when neither the address nor the variable is
-    given; True once the group is up.  ``backend``: NCCL with a card, gloo
-    without one.  With a card this process takes
-    ``local_device_ids[0]`` (default: its rank modulo the cards) as its
-    current device.  ``timeout``: seconds a collective may wait before it
-    fails."""
+    No-op returning False when no address is given; True once the group
+    is up.  ``device``: None binds this process's card as its current
+    device (``local_device_ids[0]``, else LOCAL_RANK, else the rank modulo
+    the cards), and raises without one; ``"cpu"`` binds none.  Call it
+    before anything touches CUDA: the port's bare ``"cuda"`` devices and
+    generators then name this card.  ``backend``: NCCL on a card, gloo on
+    the CPU; gloo over CUDA tensors only when asked for (ranks sharing one
+    card, which NCCL refuses).  ``timeout``: seconds a collective may wait
+    before it fails."""
     if tdist.is_initialized():
         return True
-    address = coordinator_address or os.environ.get("MJRL_COORDINATOR")
-    if address is None:
+    env = os.environ
+    address = coordinator_address or env.get("MJRL_COORDINATOR")
+    if address is not None:
+        init_method = f"tcp://{address}"
+        num_processes = env["MJRL_NUM_PROCS"] if num_processes is None \
+            else num_processes
+        process_id = env["MJRL_PROC_ID"] if process_id is None \
+            else process_id
+    elif "MASTER_ADDR" in env and "MASTER_PORT" in env:
+        init_method = "env://"             # torchrun's store, where it has one
+        num_processes = env["WORLD_SIZE"] if num_processes is None \
+            else num_processes
+        process_id = env["RANK"] if process_id is None else process_id
+    else:
         return False
-    num_processes = int(num_processes if num_processes is not None
-                        else os.environ["MJRL_NUM_PROCS"])
-    process_id = int(process_id if process_id is not None
-                     else os.environ["MJRL_PROC_ID"])
-    cuda = torch.cuda.is_available()
+    num_processes, process_id = int(num_processes), int(process_id)
+    if device is None:
+        default_device()                   # raises without a card
+        if local_device_ids:
+            card = local_device_ids[0]
+        elif "LOCAL_RANK" in env:
+            card = int(env["LOCAL_RANK"])
+        else:
+            card = process_id % torch.cuda.device_count()
+        device = torch.device("cuda", card)
+    device = torch.device(device)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
     if backend is None:
-        backend = "nccl" if cuda else "gloo"
-    if cuda:
-        torch.cuda.set_device(local_device_ids[0] if local_device_ids
-                              else process_id % torch.cuda.device_count())
+        backend = "nccl" if device.type == "cuda" else "gloo"
     tdist.init_process_group(
-        backend, init_method=f"tcp://{address}", world_size=num_processes,
+        backend, init_method=init_method, world_size=num_processes,
         rank=process_id, timeout=datetime.timedelta(seconds=timeout))
     return True
 
@@ -72,9 +100,10 @@ def is_distributed():
     return tdist.is_initialized() and tdist.get_world_size() > 1
 
 
-def global_mesh(axis_name=BATCH_AXIS):
-    """1-D mesh over every rank of the process group."""
-    return make_mesh(axis_name=axis_name)
+def global_mesh(axis_name=BATCH_AXIS, device=None):
+    """1-D mesh over every rank of the process group, this rank on
+    ``device`` (default: its current card; ``"cpu"`` when asked for)."""
+    return make_mesh(axis_name=axis_name, device=device)
 
 
 class HostSharded:

@@ -32,6 +32,8 @@ from dataclasses import dataclass, fields, is_dataclass
 import torch
 import torch.distributed as dist
 
+from mjrl_tpu_torch.device import default_device
+
 BATCH_AXIS = "batch"
 
 
@@ -86,6 +88,27 @@ class Mesh:
         self.collective_seconds += time.perf_counter() - t0
         return out
 
+    def barrier(self):
+        """Return once every rank has called it (at once without a process
+        group): an all-reduce whose result the host reads."""
+        if self.group is not None:
+            t = torch.zeros(1, device=self.device)
+            dist.all_reduce(t, group=self.group)
+            t.item()
+
+    def check_same(self, name, values):
+        """Raise unless every rank holds the same floats ``values`` (NaN
+        equal to NaN): one gather."""
+        if self.group is None:
+            return
+        x = torch.tensor([[float(v) for v in values]], dtype=torch.float64,
+                         device=self.device)
+        every = self.gather(x)
+        same = (every == x) | (torch.isnan(every) & torch.isnan(x))
+        if not bool(same.all()):
+            raise RuntimeError(f"the ranks disagree on {name}: "
+                               f"{every.tolist()}")
+
     def gather(self, x):
         """Every rank's rows of ``x`` (each rank holding as many), in rank
         order: one all-reduce of a zero-padded buffer."""
@@ -100,18 +123,14 @@ class Mesh:
         return self.all_reduce_sum(buf).to(dtype)
 
 
-def _default_device():
-    if torch.cuda.is_available():
-        return torch.device("cuda", torch.cuda.current_device())
-    return torch.device("cpu")
-
-
-def make_mesh(n_devices=None, devices=None, axis_name=BATCH_AXIS):
+def make_mesh(n_devices=None, devices=None, axis_name=BATCH_AXIS,
+              device=None):
     """A 1-D mesh over the batch axis: every rank of the initialized
     process group, or one rank without one (or with ``n_devices=1``).
-    ``devices``: one ``torch.device`` per rank (this rank takes
-    ``devices[rank]``); default: this process's current CUDA device, or the
-    CPU without a card.  Raises when ``n_devices`` exceeds the world."""
+    This rank's device: ``device``, else ``devices[rank]`` (one
+    ``torch.device`` per rank), else this process's current card, which
+    raises without one (the CPU only when asked for).  Raises when
+    ``n_devices`` exceeds the world."""
     if dist.is_available() and dist.is_initialized():
         world, rank, group = dist.get_world_size(), dist.get_rank(), \
             dist.group.WORLD
@@ -128,12 +147,13 @@ def make_mesh(n_devices=None, devices=None, axis_name=BATCH_AXIS):
     elif n != world:
         raise ValueError(f"a mesh spans the whole process group ({world} "
                          f"ranks) or one rank, not {n}")
-    if devices is not None:
+    if device is None and devices is not None:
         if len(devices) != n:
             raise ValueError(f"{len(devices)} devices for {n} ranks")
         device = devices[rank]
-    else:
-        device = _default_device()
+    elif device is None:
+        default_device()                   # raises without a card
+        device = torch.device("cuda", torch.cuda.current_device())
     return Mesh(group, rank, n, device, axis_name)
 
 

@@ -12,9 +12,11 @@ score and the iteration:
     iteration = restore_agent_checkpoint(dir, agent)
 
 Tensors are stored on the CPU (``torch.save``) and restored to the
-agent's device.  A baseline that owns a generator (``MLPBaseline``: its
-fits draw their permutations from it) also stores that generator's state,
-so that a resumed run draws what the uninterrupted one would have.
+agent's device: under a mesh (``agent.mesh``) rank 0 alone writes, every
+rank waits for it, and each rank restores onto its own card.  A baseline
+that owns a generator (``MLPBaseline``: its fits draw their permutations
+from it) also stores that generator's state, so that a resumed run draws
+what the uninterrupted one would have.
 
 ``enable_compilation_cache()`` has no XLA cache to configure: it returns
 the directory where the port keeps the kernels it builds (nvcc and g++,
@@ -27,6 +29,7 @@ import tempfile
 import numpy as np
 import torch
 
+from mjrl_tpu_torch.device import set_generator_state
 from mjrl_tpu_torch.models.fc_network import Transforms
 from mjrl_tpu_torch.ops.cuda_planar import BUILD_DIR
 from mjrl_tpu_torch.ops.flat import tree_to
@@ -58,17 +61,22 @@ def _agent_state(agent, iteration):
 
 
 def save_agent_checkpoint(ckpt_dir, agent, iteration):
-    """Write ``ckpt_dir/state_<iteration>.pt`` -> the directory."""
+    """Write ``ckpt_dir/state_<iteration>.pt`` (rank 0 of a mesh; every
+    rank returns once it is written) -> the directory."""
     ckpt_dir = os.path.abspath(ckpt_dir)
-    os.makedirs(ckpt_dir, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(dir=ckpt_dir, suffix=".pt.tmp")
-    os.close(fd)
-    try:
-        torch.save(_agent_state(agent, iteration), tmp)
-        os.replace(tmp, os.path.join(ckpt_dir, f"state_{iteration}.pt"))
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    mesh = getattr(agent, "mesh", None)
+    if mesh is None or mesh.rank == 0:
+        os.makedirs(ckpt_dir, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(dir=ckpt_dir, suffix=".pt.tmp")
+        os.close(fd)
+        try:
+            torch.save(_agent_state(agent, iteration), tmp)
+            os.replace(tmp, os.path.join(ckpt_dir, f"state_{iteration}.pt"))
+        finally:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+    if mesh is not None:
+        mesh.barrier()
     return ckpt_dir
 
 
@@ -89,8 +97,10 @@ def latest_checkpoint(ckpt_dir):
 
 
 def restore_agent_checkpoint(ckpt_dir, agent, iteration=None):
-    """Restore in place; returns the checkpoint's iteration (or None when
-    there is no checkpoint)."""
+    """Restore in place onto the agent's device (under a mesh, this rank's
+    card); returns the checkpoint's iteration (or None when there is no
+    checkpoint).  A generator state saved from another kind of device
+    raises."""
     iteration = latest_checkpoint(ckpt_dir) if iteration is None \
         else iteration
     if iteration is None:
@@ -98,19 +108,19 @@ def restore_agent_checkpoint(ckpt_dir, agent, iteration=None):
     state = torch.load(
         os.path.join(os.path.abspath(ckpt_dir), f"state_{iteration}.pt"),
         map_location="cpu", weights_only=True)
-    dev = agent.policy.device
+    mesh = getattr(agent, "mesh", None)
+    dev = agent.device if mesh is None else mesh.device
     agent.policy.params = tree_to(state["policy_params"], dev)
     agent.policy.old_params = tree_to(state["policy_old_params"], dev)
     agent.policy.transforms = Transforms(
         *(t.to(dev) for t in state["policy_transforms"]))
-    agent.baseline.state = tree_to(state["baseline_state"],
-                                   agent.baseline.device)
-    agent.generator.set_state(state["generator_state"])
+    agent.baseline.state = tree_to(state["baseline_state"], dev)
+    set_generator_state(agent.generator, state["generator_state"])
     if "baseline_generator_state" in state:
-        agent.baseline.generator.set_state(
-            state["baseline_generator_state"])
+        set_generator_state(agent.baseline.generator,
+                            state["baseline_generator_state"])
     rs = float(state["running_score"])
     agent.running_score = None if np.isnan(rs) else rs
     if "opt_state" in state and hasattr(agent, "opt_state"):
-        agent.opt_state = tree_to(state["opt_state"], agent.device)
+        agent.opt_state = tree_to(state["opt_state"], dev)
     return int(state["iteration"])

@@ -14,7 +14,17 @@ Improvements over the reference (capability, not bug, parity):
 - checkpoints include the agent's generator state and optimizer state
   (``checkpoint_<i>.pickle``), which the reference acknowledges losing
   (train_agent.py:89-90);
-- pickles hold CPU tensors whatever device the agent trains on.
+- pickles hold CPU tensors whatever device the agent trains on, and a
+  resume loads them onto the agent's device.
+
+Under a mesh of R ranks (``agent.mesh``, ``parallel/``) every rank runs
+the same iterations and takes the same decisions (the statistics are
+all-reduced, the evaluation rollouts replicated from generators alike;
+each iteration checks that the ranks agree); rank 0 alone creates the job
+directory and writes logs, pickles, ``results.txt`` and plots, so R ranks
+leave the files one rank leaves.  Every rank waits at a barrier after the
+resume's reads and after each save, and a resume puts each rank's policy
+on its own card.
 """
 
 import copy
@@ -23,13 +33,15 @@ import pickle
 
 import numpy as np
 
+from mjrl_tpu_torch.device import load_pickle, set_generator_state
 from mjrl_tpu_torch.ops.flat import tree_to
 from mjrl_tpu_torch.samplers.rollout import sample_paths
 from mjrl_tpu_torch.utils.make_train_plots import make_train_plots
 
 
-def _load_latest_policy_and_logs(agent, policy_dir, logs_dir):
-    """-> next iteration number to run (0 if nothing to resume)."""
+def _load_latest_policy_and_logs(agent, policy_dir, logs_dir, device):
+    """-> next iteration number to run (0 if nothing to resume); the
+    policy, baseline and optimizer state are loaded onto ``device``."""
     log_csv_path = os.path.join(logs_dir, "log.csv")
     if not (os.path.exists(log_csv_path) and os.path.isdir(policy_dir)):
         return 0
@@ -43,20 +55,17 @@ def _load_latest_policy_and_logs(agent, policy_dir, logs_dir):
         ckpt_path = os.path.join(policy_dir, f"checkpoint_{i}.pickle")
         if not os.path.isfile(policy_path):
             continue
-        with open(policy_path, "rb") as f:
-            agent.policy = pickle.load(f)
+        agent.policy = load_pickle(policy_path, device)
         if os.path.isfile(baseline_path):
-            with open(baseline_path, "rb") as f:
-                agent.baseline = pickle.load(f)
+            agent.baseline = load_pickle(baseline_path, device)
         if os.path.isfile(ckpt_path):
-            with open(ckpt_path, "rb") as f:
-                extra = pickle.load(f)
+            extra = load_pickle(ckpt_path, device)
             if "rng_state" in extra:
-                agent.generator.set_state(extra["rng_state"])
+                set_generator_state(agent.generator, extra["rng_state"])
             agent.running_score = extra.get("running_score",
                                             agent.running_score)
             if "opt_state" in extra and hasattr(agent, "opt_state"):
-                agent.opt_state = tree_to(extra["opt_state"], agent.device)
+                agent.opt_state = tree_to(extra["opt_state"], device)
         agent.logger.shrink_to(i + 1)
         return i + 1
     return 0
@@ -77,14 +86,16 @@ def train_agent(job_name, agent,
                 env_kwargs=None,
                 ):
     np.random.seed(seed)
-    if os.path.isdir(job_name):
-        print(f"Job directory {job_name} already exists — continuing.")
-    os.makedirs(job_name, exist_ok=True)
+    mesh = getattr(agent, "mesh", None)
+    root = mesh is None or mesh.rank == 0
     iter_dir = os.path.join(job_name, "iterations")
     logs_dir = os.path.join(job_name, "logs")
-    os.makedirs(iter_dir, exist_ok=True)
-    if agent.save_logs:
-        os.makedirs(logs_dir, exist_ok=True)
+    if root:
+        if os.path.isdir(job_name):
+            print(f"Job directory {job_name} already exists — continuing.")
+        os.makedirs(iter_dir, exist_ok=True)
+        if agent.save_logs:
+            os.makedirs(logs_dir, exist_ok=True)
 
     if sample_mode not in ("trajectories", "samples"):
         raise ValueError("sample_mode must be 'trajectories' or 'samples'")
@@ -97,14 +108,20 @@ def train_agent(job_name, agent,
 
     fenv = agent.fenv
 
-    i_start = _load_latest_policy_and_logs(agent, iter_dir, logs_dir) \
-        if agent.save_logs else 0
-    if i_start:
+    # a resume loads each rank's copy onto its own card
+    device = agent.device if mesh is None else mesh.device
+    i_start = _load_latest_policy_and_logs(agent, iter_dir, logs_dir,
+                                           device) if agent.save_logs else 0
+    if mesh is not None:
+        mesh.check_same("the iteration to resume from", [i_start])
+        mesh.barrier()          # every rank has read before rank 0 writes
+    if i_start and root:
         print(f"Resuming from iteration {i_start}")
 
     for i in range(i_start, niter):
-        print("......................................................")
-        print(f"ITERATION : {i}")
+        if root:
+            print("......................................................")
+            print(f"ITERATION : {i}")
 
         if train_curve[i - 1] > best_perf:
             best_policy = copy.deepcopy(agent.policy)
@@ -116,7 +133,8 @@ def train_agent(job_name, agent,
         train_curve[i] = stats[0]
 
         if evaluation_rollouts is not None and evaluation_rollouts > 0:
-            print(f"Performing evaluation rollouts ........")
+            if root:
+                print("Performing evaluation rollouts ........")
             eval_paths = sample_paths(
                 num_traj=evaluation_rollouts, env=fenv, policy=agent.policy,
                 eval_mode=True, base_seed=seed,
@@ -131,26 +149,38 @@ def train_agent(job_name, agent,
                     eval_success = fenv.evaluate_success(eval_paths)
                     agent.logger.log_kv("eval_success", eval_success)
 
+        if mesh is not None:
+            mesh.check_same(f"iteration {i}'s scores",
+                            [train_curve[i], mean_pol_perf, best_perf])
         if i % save_freq == 0 and i > 0:
-            if agent.save_logs:
-                agent.logger.save_log(logs_dir)
-                make_train_plots(log=agent.logger.log, keys=plot_keys,
-                                 save_loc=logs_dir)
-            _save_checkpoint(agent, best_policy, iter_dir, i)
+            _save(agent, best_policy, job_name, i, plot_keys, root, mesh)
 
-        print_data = sorted(filter(lambda v: np.asarray(v[1]).size == 1,
-                                   agent.logger.get_current_log().items())) \
-            if agent.save_logs else []
-        _print_table(job_name, i, train_curve[i], mean_pol_perf, best_perf,
-                     print_data)
+        if root:
+            print_data = sorted(
+                filter(lambda v: np.asarray(v[1]).size == 1,
+                       agent.logger.get_current_log().items())) \
+                if agent.save_logs else []
+            _print_table(job_name, i, train_curve[i], mean_pol_perf,
+                         best_perf, print_data)
 
-    # final save
-    _save_checkpoint(agent, best_policy, iter_dir, "final")
-    if agent.save_logs:
-        agent.logger.save_log(logs_dir)
-        make_train_plots(log=agent.logger.log, keys=plot_keys,
-                         save_loc=logs_dir)
+    _save(agent, best_policy, job_name, "final", plot_keys, root, mesh)
     return agent
+
+
+def _save(agent, best_policy, job_name, tag, plot_keys, root, mesh):
+    """Rank 0 writes the logs, plots and pickles of iteration ``tag``;
+    every rank then waits at a barrier, so a later read finds them
+    whole."""
+    if root:
+        logs_dir = os.path.join(job_name, "logs")
+        if agent.save_logs:
+            agent.logger.save_log(logs_dir)
+            make_train_plots(log=agent.logger.log, keys=plot_keys,
+                             save_loc=logs_dir)
+        _save_checkpoint(agent, best_policy,
+                         os.path.join(job_name, "iterations"), tag)
+    if mesh is not None:
+        mesh.barrier()
 
 
 def _save_checkpoint(agent, best_policy, iter_dir, tag):

@@ -7,8 +7,8 @@
 """
 
 import argparse
-import pickle
 
+from mjrl_tpu_torch.device import load_pickle
 from mjrl_tpu_torch.envs.gym_env import GymEnv
 from mjrl_tpu_torch.utils.render import visualize_policy
 
@@ -27,8 +27,7 @@ def main(argv=None):
     args = parser.parse_args(argv)
 
     e = GymEnv(args.env_name, device=args.device)
-    with open(args.policy, "rb") as f:
-        policy = pickle.load(f)
+    policy = load_pickle(args.policy, args.device)
     n = visualize_policy(e, policy, num_episodes=args.episodes,
                          mean_action=not args.stochastic,
                          save_dir=args.save_dir)

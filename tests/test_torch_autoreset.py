@@ -109,14 +109,22 @@ def test_done_aware_scans_match_jax(grid, name):
 # autoreset rollouts against a JAX loop
 # ---------------------------------------------------------------------------
 
+_JAX_STATES = {}          # id(jenv) -> (jenv, its jitted jax_states)
+
+
 def jax_states(jenv, qpos, qvel):
     """A batched JAX EnvState at (qpos, qvel): a fresh reset (t = 0, reward
-    0, done False) with the physics and observation replaced."""
-    s = jax.vmap(jenv.reset)(jax.random.split(jax.random.PRNGKey(0),
-                                              qpos.shape[0]))
-    physics = JState(qpos=jnp.asarray(qpos), qvel=jnp.asarray(qvel))
-    obs = jax.vmap(lambda p: jenv._obs(None, {}, p))(physics)
-    return s.replace(physics=physics, obs=obs)
+    0, done False) with the physics and observation replaced; traced once
+    per env (the loop below takes a fresh batch at every step)."""
+    if id(jenv) not in _JAX_STATES:
+        def states(qpos, qvel):
+            s = jax.vmap(jenv.reset)(jax.random.split(
+                jax.random.PRNGKey(0), qpos.shape[0]))
+            physics = JState(qpos=qpos, qvel=qvel)
+            obs = jax.vmap(lambda p: jenv._obs(None, {}, p))(physics)
+            return s.replace(physics=physics, obs=obs)
+        _JAX_STATES[id(jenv)] = (jenv, jax.jit(states))
+    return _JAX_STATES[id(jenv)][1](jnp.asarray(qpos), jnp.asarray(qvel))
 
 
 def jax_autoreset_loop(jenv, jcfg, jparams, jtr, state0, noise, resets):

@@ -51,14 +51,19 @@ class TiltedHopper(jsuite.HopperEnv):
 def jax_draws(jenv, key, act_dim):
     """The start states, action noise and fresh states that
     ``rollout_batch`` draws from ``key`` (``rollout.py:100-152``)."""
-    keys = jax.random.split(key, B)
-    k_reset, k_scan = jax.vmap(jax.random.split)(keys).transpose(1, 0, 2)
-    s0 = jax.vmap(jenv.reset)(k_reset)
-    kt = jax.vmap(lambda k: jax.random.split(k, T))(k_scan)     # (B, T)
-    noise = jax.vmap(jax.vmap(lambda k: jax.random.normal(
-        k, (act_dim,), jnp.float64)))(kt)
-    fresh = jax.vmap(jax.vmap(lambda k: jenv.reset(
-        jax.random.fold_in(k, 1))))(kt)
+    @jax.jit
+    def draws(key):               # one program: eagerly, each op compiles
+        keys = jax.random.split(key, B)
+        k_reset, k_scan = jax.vmap(jax.random.split)(keys).transpose(1, 0,
+                                                                     2)
+        s0 = jax.vmap(jenv.reset)(k_reset)
+        kt = jax.vmap(lambda k: jax.random.split(k, T))(k_scan)  # (B, T)
+        noise = jax.vmap(jax.vmap(lambda k: jax.random.normal(
+            k, (act_dim,), jnp.float64)))(kt)
+        fresh = jax.vmap(jax.vmap(lambda k: jenv.reset(
+            jax.random.fold_in(k, 1))))(kt)
+        return s0, noise, fresh
+    s0, noise, fresh = draws(key)
     tp = lambda a: np.swapaxes(np.asarray(a), 0, 1)             # (T, B, .)
     return ((np.asarray(s0.physics.qpos), np.asarray(s0.physics.qvel)),
             tp(noise), (tp(fresh.physics.qpos), tp(fresh.physics.qvel)))

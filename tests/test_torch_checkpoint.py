@@ -137,3 +137,84 @@ def test_agent_pickle_roundtrip():
     assert np.isfinite(sb[0]) and sa[0] == sb[0]
     np.testing.assert_array_equal(b.policy.get_param_values(),
                                   a.policy.get_param_values())
+
+
+# -- the device a pickle loads onto -----------------------------------------------
+
+CUDA_GENERATOR_STATE = torch.zeros(16, dtype=torch.uint8)   # seed, offset
+
+
+def _pickled_objects():
+    """One object of each class of the port that pickles its device."""
+    from mjrl_tpu_torch.algos import BC
+    from mjrl_tpu_torch.algos.model_accel.nn_dynamics import (
+        WorldModel, WorldModelEnsemble)
+    a = agent(baseline=MLPBaseline)
+    paths = [{"observations": np.zeros((4, 6)), "actions": np.zeros((4, 2))}]
+    return {
+        "policy": a.policy, "baseline": a.baseline, "agent": a,
+        "bc": BC(paths, a.policy, epochs=1, batch_size=2, device="cpu"),
+        "world_model": WorldModel(3, 2, hidden_size=(4,), device="cpu"),
+        "ensemble": WorldModelEnsemble(2, 3, 2, hidden_size=(4,),
+                                       device="cpu")}
+
+
+class _Saved:
+    """Pickles as ``obj`` would, with ``changes`` made to its state."""
+
+    def __init__(self, obj, **changes):
+        self.cls, self.state = type(obj), {**obj.__getstate__(), **changes}
+
+    def __reduce__(self):
+        return object.__new__, (self.cls,), self.state
+
+
+def _as_saved_on(obj, device, **changes):
+    key = "_device" if "_device" in obj.__getstate__() else "device"
+    return pickle.dumps(_Saved(obj, **{key: device}, **changes))
+
+
+@pytest.mark.parametrize("name", ["policy", "baseline", "agent", "bc",
+                                  "world_model", "ensemble"])
+def test_card_pickle_needs_a_card_or_device_cpu(monkeypatch, name, tmp_path):
+    """A pickle made on a card, loaded where there is none, raises naming
+    device="cpu"; asked for the CPU, it loads there."""
+    from mjrl_tpu_torch.device import load_pickle, unpickling_onto
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    obj = _pickled_objects()[name]
+    blob = _as_saved_on(obj, "cuda:0")
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        pickle.loads(blob)
+    with unpickling_onto("cpu"):
+        copy = pickle.loads(blob)
+    assert copy.device.type == "cpu"
+    (tmp_path / "obj.pickle").write_bytes(blob)
+    assert load_pickle(tmp_path / "obj.pickle", "cpu").device.type == "cpu"
+
+
+@pytest.mark.parametrize("name", ["policy", "baseline", "agent", "bc",
+                                  "world_model"])
+def test_generator_state_of_another_kind_raises(name):
+    """A generator's state of another device kind is not reseeded in
+    silence: it raises, unless the loader itself moved the object to
+    another kind of device, and then the restart is announced."""
+    from mjrl_tpu_torch.device import unpickling_onto
+    obj = _pickled_objects()[name]
+    with pytest.raises(ValueError, match="another kind of device"):
+        pickle.loads(_as_saved_on(obj, "cpu",
+                                  generator=CUDA_GENERATOR_STATE))
+    with unpickling_onto("cpu"), pytest.warns(RuntimeWarning,
+                                              match="restarts from seed"):
+        copy = pickle.loads(_as_saved_on(obj, "cuda:0",
+                                         generator=CUDA_GENERATOR_STATE))
+    assert copy.generator.initial_seed() == obj.seed
+
+
+def test_restore_of_another_kinds_generator_raises(tmp_path):
+    a = agent()
+    save_agent_checkpoint(str(tmp_path), a, 1)
+    state = torch.load(tmp_path / "state_1.pt", weights_only=True)
+    state["generator_state"] = CUDA_GENERATOR_STATE
+    torch.save(state, tmp_path / "state_2.pt")
+    with pytest.raises(ValueError, match="another kind of device"):
+        restore_agent_checkpoint(str(tmp_path), agent(), 2)

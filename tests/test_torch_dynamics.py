@@ -193,8 +193,8 @@ def test_ball_golden_contacts_inactive():
         jnp.float64)
     assert len(jm.contact_pairs) == 1
     g = _golden("ball")
-    depths = jax.vmap(lambda q: jax_find_contacts(jm, jax_fk(jm, q))[0])(
-        jnp.asarray(g["qpos"]))
+    depths = jax.jit(jax.vmap(lambda q: jax_find_contacts(
+        jm, jax_fk(jm, q))[0]))(jnp.asarray(g["qpos"]))
     assert float(jnp.max(depths)) < 0.0
 
 

@@ -74,10 +74,13 @@ CASES = {
 
 
 def jax_batch_state(jenv, q, v, scenery):
-    s = jax.vmap(jenv.reset)(jax.random.split(jax.random.PRNGKey(0), B))
-    d = dict(qp=jnp.asarray(q), qv=jnp.asarray(v),
-             **{k: jnp.asarray(x) for k, x in scenery.items()})
-    return jax.vmap(jenv.set_env_state)(s, d)
+    """Traced as one program (eagerly, each operation compiles alone)."""
+    def batch_state(d):
+        s = jax.vmap(jenv.reset)(jax.random.split(jax.random.PRNGKey(0), B))
+        return jax.vmap(jenv.set_env_state)(s, d)
+    return jax.jit(batch_state)(
+        dict(qp=jnp.asarray(q), qv=jnp.asarray(v),
+             **{k: jnp.asarray(x) for k, x in scenery.items()}))
 
 
 @pytest.fixture(scope="module", params=list(CASES))

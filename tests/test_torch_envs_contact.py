@@ -38,14 +38,19 @@ B, TOL = 6, 1e-9
 
 
 def jax_batch_state(jenv, q, v, scenery):
-    """A batch of JAX env states at (q, v) with the given scenery."""
-    s = jax.vmap(jenv.reset)(jax.random.split(jax.random.PRNGKey(0), B))
-    sc = {k: jnp.asarray(x) for k, x in scenery.items()}
-    phys = s.physics.replace(qpos=jnp.asarray(q), qvel=jnp.asarray(v))
-    s = s.replace(physics=phys, scenery=sc or s.scenery)
-    return jax.vmap(lambda x: x.replace(obs=jenv._obs(
-        jax_fk(jenv._patched_model(x.scenery), x.physics.qpos),
-        x.scenery, x.physics)))(s)
+    """A batch of JAX env states at (q, v) with the given scenery, traced
+    as one program (eagerly, each of its hundreds of operations compiles
+    on its own)."""
+    def batch_state(q, v, sc):
+        s = jax.vmap(jenv.reset)(jax.random.split(jax.random.PRNGKey(0), B))
+        phys = s.physics.replace(qpos=q, qvel=v)
+        s = s.replace(physics=phys, scenery=sc or s.scenery)
+        return jax.vmap(lambda x: x.replace(obs=jenv._obs(
+            jax_fk(jenv._patched_model(x.scenery), x.physics.qpos),
+            x.scenery, x.physics)))(s)
+    return jax.jit(batch_state)(
+        jnp.asarray(q), jnp.asarray(v),
+        {k: jnp.asarray(x) for k, x in scenery.items()})
 
 
 def _golden(name):
@@ -131,8 +136,8 @@ def test_peg_scenery_moves_the_hole_and_walls():
     tenv = PegEnv(dtype=torch.float64, device="cpu")
     q = np.tile(np.random.RandomState(2).uniform(-0.5, 0.5, 7), (B, 1))
     gy = np.linspace(0.1, 0.5, B)
-    want = jax.vmap(lambda a, y: jax_fk(jenv._patched_model(
-        {"goal_y": y}), a).xpos)(jnp.asarray(q), jnp.asarray(gy))
+    want = jax.jit(jax.vmap(lambda a, y: jax_fk(jenv._patched_model(
+        {"goal_y": y}), a).xpos))(jnp.asarray(q), jnp.asarray(gy))
     bp = tenv._body_pos({"goal_y": torch.tensor(gy)})
     got = fwd_kinematics(tenv.model, torch.tensor(q), body_pos=bp).xpos
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,

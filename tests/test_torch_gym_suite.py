@@ -68,11 +68,14 @@ def step_states(tenv):
 
 
 def jax_state(jenv, qpos, qvel):
-    s = jax.vmap(jenv.reset)(jax.random.split(jax.random.PRNGKey(0),
-                                              qpos.shape[0]))
-    physics = JState(qpos=jnp.asarray(qpos), qvel=jnp.asarray(qvel))
-    obs = jax.vmap(lambda ph: jenv._obs(None, {}, ph))(physics)
-    return s.replace(physics=physics, obs=obs)
+    """Traced as one program (eagerly, each operation compiles alone)."""
+    def state(qpos, qvel):
+        s = jax.vmap(jenv.reset)(jax.random.split(jax.random.PRNGKey(0),
+                                                  qpos.shape[0]))
+        physics = JState(qpos=qpos, qvel=qvel)
+        obs = jax.vmap(lambda ph: jenv._obs(None, {}, ph))(physics)
+        return s.replace(physics=physics, obs=obs)
+    return jax.jit(state)(jnp.asarray(qpos), jnp.asarray(qvel))
 
 
 @pytest.mark.parametrize("env_id", list(ENVS))

@@ -292,7 +292,8 @@ def test_conversion_round_trip_and_pickle():
     # the model axis over a mesh (M11) is ported: on a one-rank mesh the
     # ensemble fits as without one, and a pickle drops the process group
     kw = dict(seed=8, hidden_size=HID, device="cpu", dtype=torch.float64)
-    meshed = tnd.WorldModelEnsemble(2, D, A, mesh=make_mesh(), **kw)
+    meshed = tnd.WorldModelEnsemble(2, D, A, mesh=make_mesh(device="cpu"),
+                                    **kw)
     plain = tnd.WorldModelEnsemble(2, D, A, **kw)
     close(meshed.fit_dynamics(s, a, sp, 16, 2), plain.fit_dynamics(
         s, a, sp, 16, 2), 0.0)

@@ -111,9 +111,9 @@ def load_ranks(out_dir, world=WORLD):
 
 def mesh_worker(rank, world, init_method, out_dir):
     torch.set_num_threads(1)
-    res = {"initialized": pdist.initialize(backend="gloo", timeout=60)}
+    res = {"initialized": pdist.initialize(device="cpu", timeout=60)}
     res["is_distributed"] = pdist.is_distributed()
-    mesh = pdist.global_mesh()
+    mesh = pdist.global_mesh(device="cpu")
     res["mesh"] = [mesh.rank, mesh.size, str(mesh.device)]
     # ported from tests/test_distributed.py's worker
     arr = pdist.host_sharded(mesh, np.full((4, 3), float(rank), np.float32))
@@ -164,14 +164,14 @@ def mesh_worker(rank, world, init_method, out_dir):
                 horizon=2, mesh=mesh)),
             ("ensemble", lambda: WorldModelEnsemble(
                 3, 4, 2, mesh=mesh, device="cpu")),
-            ("mesh_of_3", lambda: make_mesh(3))):
+            ("mesh_of_3", lambda: make_mesh(3, device="cpu"))):
         try:
             fn()
             errors[name] = None
         except ValueError as e:
             errors[name] = str(e)
     res["errors"] = errors
-    one = make_mesh(1)
+    one = make_mesh(1, device="cpu")
     res["one_rank"] = [one.size, one.group is None,
                        one.all_reduce_sum(torch.tensor(2.0)).item()]
     dist.barrier()
@@ -243,15 +243,126 @@ def test_uneven_splits_raise(ranks):
 
 # -- one rank, in this process --------------------------------------------------
 
+LAUNCH_VARS = ("MJRL_COORDINATOR", "MJRL_NUM_PROCS", "MJRL_PROC_ID",
+               "MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK",
+               "LOCAL_RANK")
+
+
 def test_initialize_without_the_environment_is_a_no_op(monkeypatch):
-    for k in ("MJRL_COORDINATOR", "MJRL_NUM_PROCS", "MJRL_PROC_ID"):
+    for k in LAUNCH_VARS:
         monkeypatch.delenv(k, raising=False)
     assert pdist.initialize() is False
     assert not dist.is_initialized() and not pdist.is_distributed()
 
 
+def _record_init(monkeypatch, cards):
+    """Stand-ins for a host with ``cards`` cards (0: none) and for
+    ``init_process_group`` -> the record of what initialize asked for."""
+    seen = {}
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: cards > 0)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
+    monkeypatch.setattr(torch.cuda, "set_device",
+                        lambda d: seen.__setitem__("card", str(d)))
+    monkeypatch.setattr(pdist.tdist, "init_process_group",
+                        lambda backend, **kw: seen.update(backend=backend,
+                                                          **kw))
+    for k in LAUNCH_VARS:
+        monkeypatch.delenv(k, raising=False)
+    return seen
+
+
+def test_initialize_binds_the_launchers_card(monkeypatch):
+    """torchrun's variables: LOCAL_RANK's card, NCCL, torchrun's store;
+    the port's own: the rank modulo the cards; the CPU when asked for."""
+    seen = _record_init(monkeypatch, cards=4)
+    for k, v in dict(MASTER_ADDR="127.0.0.1", MASTER_PORT="29511",
+                     WORLD_SIZE="8", RANK="6", LOCAL_RANK="2").items():
+        monkeypatch.setenv(k, v)
+    assert pdist.initialize() is True
+    assert (seen["card"], seen["backend"], seen["init_method"],
+            seen["world_size"], seen["rank"]) == ("cuda:2", "nccl",
+                                                  "env://", 8, 6)
+    monkeypatch.setenv("MJRL_COORDINATOR", "127.0.0.1:29512")
+    monkeypatch.setenv("MJRL_NUM_PROCS", "8")
+    monkeypatch.setenv("MJRL_PROC_ID", "5")
+    monkeypatch.delenv("LOCAL_RANK")
+    seen.clear()
+    assert pdist.initialize(backend="gloo") is True
+    assert (seen["card"], seen["backend"], seen["init_method"],
+            seen["rank"]) == ("cuda:1", "gloo", "tcp://127.0.0.1:29512", 5)
+    seen.clear()
+    pdist.initialize(device="cpu")
+    assert "card" not in seen and seen["backend"] == "gloo"
+
+
+def test_make_mesh_and_initialize_raise_without_a_card(monkeypatch):
+    """Without a card the mesh and the group use the CPU only when the
+    caller asks for it."""
+    seen = _record_init(monkeypatch, cards=0)
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        make_mesh()
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        pdist.global_mesh()
+    assert make_mesh(device="cpu").device.type == "cpu"
+    for env in (dict(MASTER_ADDR="127.0.0.1", MASTER_PORT="29513",
+                     WORLD_SIZE="2", RANK="0", LOCAL_RANK="0"),
+                dict(MJRL_COORDINATOR="127.0.0.1:29514", MJRL_NUM_PROCS="2",
+                     MJRL_PROC_ID="0")):
+        for k, v in env.items():
+            monkeypatch.setenv(k, v)
+        with pytest.raises(RuntimeError, match="no CUDA GPU"):
+            pdist.initialize()
+        assert seen == {}
+        with pytest.raises(RuntimeError, match="no CUDA GPU"):
+            pdist.initialize(backend="gloo")
+        for k in env:
+            monkeypatch.delenv(k)
+
+
+def launcher_worker(rank, world, init_method, out_dir):
+    """One rank started with torchrun's variables (no MJRL_*)."""
+    torch.set_num_threads(1)
+    res = {"initialized": pdist.initialize(device="cpu", timeout=60),
+           "local_rank": os.environ["LOCAL_RANK"]}
+    mesh = pdist.global_mesh(device="cpu")
+    res["mesh"] = [mesh.rank, mesh.size, str(mesh.device)]
+    res["mean"] = pdist.all_hosts_mean(mesh, 10.0 * (rank + 1))
+    mesh.check_same("a value every rank holds", [3.0, float("nan")])
+    try:
+        mesh.check_same("the rank", [rank])
+        res["disagreement"] = None
+    except RuntimeError as e:
+        res["disagreement"] = str(e)
+    mesh.barrier()
+    dist.destroy_process_group()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def test_initialize_from_torchruns_variables(tmp_path):
+    """Two processes with the variables ``torchrun`` sets join one group;
+    the ranks' agreement check passes on equal values and names the ones
+    that differ."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    base = {k: v for k, v in os.environ.items() if k not in LAUNCH_VARS}
+    env_of = lambda r: dict(base, MASTER_ADDR="127.0.0.1",
+                            MASTER_PORT=str(port), WORLD_SIZE=str(WORLD),
+                            RANK=str(r), LOCAL_RANK=str(r))
+    join_ranks(spawn_ranks("test_torch_parallel_mesh", "launcher_worker",
+                           tmp_path, env_of=env_of))
+    for r in range(WORLD):
+        with open(tmp_path / f"rank{r}.json") as f:
+            res = json.load(f)
+        assert res["initialized"] and res["local_rank"] == str(r)
+        assert res["mesh"] == [r, WORLD, "cpu"]
+        assert abs(res["mean"] - 15.0) < 1e-12
+        assert "the rank" in res["disagreement"]
+
+
 def test_one_rank_mesh_without_a_group():
-    mesh = make_mesh()
+    mesh = make_mesh(device="cpu")
     assert (mesh.rank, mesh.size, mesh.group) == (0, 1, None)
     assert mesh.axis_names == ("batch",)
     x = torch.arange(6.0)
@@ -263,7 +374,7 @@ def test_one_rank_mesh_without_a_group():
     with pytest.raises(ValueError, match="2 ranks needs a process group"):
         Mesh(None, 1, 2, "cpu")
     with pytest.raises(ValueError, match="2 ranks"):
-        make_mesh(2)
+        make_mesh(2, device="cpu")
     assert pdist.all_hosts_mean(mesh, 4.5) == 4.5
 
 

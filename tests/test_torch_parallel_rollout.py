@@ -12,9 +12,15 @@ float64), Hopper-v3 (contacts, early termination).
   port rollout exactly (0.0), so every draw is made for the whole batch and
   sliced.
 
+The same four rollouts on four ranks (2 rows each) equal one rank at
+``RANK_TOL`` 1e-10, the tolerance of ``test_torch_parallel_train.py`` (a
+batch of 2 rows rounds the Hopper step's last bit otherwise than one of
+8), and their eval rollout equals the JAX package's, sharded over 4 of the
+8 virtual devices, at ``ROLLOUT_TOL``.
+
 The JAX side and the one-rank runs go in this process while the ranks
 run; the ranks import this file, which imports JAX only inside its
-fixture.
+fixtures.
 """
 
 import os
@@ -35,7 +41,7 @@ from test_torch_parallel_mesh import (init_ranks, join_ranks, load_ranks,
                                       spawn_ranks)
 
 B, T, HID = 8, 4, (8, 8)
-ROLLOUT_TOL = 1e-8
+ROLLOUT_TOL, RANK_TOL = 1e-8, 1e-10
 LEAVES = ("observations", "actions", "rewards", "mask", "agent_mean",
           "last_obs", "terminated")
 
@@ -70,7 +76,7 @@ def rollout_worker(rank, world, init_method, out_dir):
     init_ranks(rank, world, init_method)
     inputs = torch.load(os.path.join(out_dir, "inputs.pt"),
                         weights_only=False)
-    out = rollouts(inputs, make_mesh())
+    out = rollouts(inputs, make_mesh(device="cpu"))
     torch.save({k: {leaf: v[leaf] for leaf in LEAVES + ("dones",)
                     if leaf in v} for k, v in out.items()},
                os.path.join(out_dir, f"rank{rank}.pt"))
@@ -79,19 +85,13 @@ def rollout_worker(rank, world, init_method, out_dir):
 @pytest.fixture(scope="module")
 def results(tmp_path_factory):
     import jax
-    import jax.numpy as jnp
 
-    from mjrl_tpu.models import policies as jpol
-    from mjrl_tpu.models.fc_network import \
-        identity_transforms as jax_identity_transforms
     from mjrl_tpu.parallel import make_mesh as jax_make_mesh
-    from mjrl_tpu.samplers import rollout as jrollout
-    from test_torch_gym_suite import _start_table, _TableHopper
-    from test_torch_policy import numpy_params, to_jax
+    from test_torch_gym_suite import _start_table
+    from test_torch_policy import numpy_params
 
     out = tmp_path_factory.mktemp("rollout_ranks")
     p_np = numpy_params(31, HID, obs=11, act=3)
-    jenv = _TableHopper(dtype=jnp.float64)
     # the JAX rollout's start states: the table rows its reset keys pick
     # (rollout_batch's split, then the env reset's), checked below against
     # its first observations
@@ -111,18 +111,45 @@ def results(tmp_path_factory):
         table=(q_tab, v_tab), noise=rng.normal(size=(T, B, 3)),
         resets=(torch.tensor(fresh_q),
                 torch.tensor(rng.uniform(-5e-3, 5e-3, (T, B, 6)))))
-    torch.save(inputs, os.path.join(str(out), "inputs.pt"))
+    four = os.path.join(str(out), "four")
+    os.makedirs(four)
+    for d in (str(out), four):
+        torch.save(inputs, os.path.join(d, "inputs.pt"))
     procs = spawn_ranks("test_torch_parallel_rollout", "rollout_worker", out)
-    jb = jax.jit(lambda k: jrollout.rollout_batch(
-        jenv, jpol.GaussianMLP(11, 3, HID), to_jax(p_np),
-        jax_identity_transforms(11, 3, jnp.float64), k, B, horizon=T,
-        eval_mode=True, mesh=jax_make_mesh()))(jax.random.PRNGKey(5))
+    procs4 = spawn_ranks("test_torch_parallel_rollout", "rollout_worker",
+                         four, world=4)
+    jb = jax_eval_rollout(p_np, jax_make_mesh())
+    jb4 = jax_eval_rollout(p_np, jax_make_mesh(4))
     one = rollouts(inputs, None)
     join_ranks(procs)
-    ranks = load_ranks(out)
-    two = {k: {leaf: torch.cat([r[k][leaf] for r in ranks])
-               for leaf in ranks[0][k]} for k in one}
-    return jb, obs0, one, two
+    join_ranks(procs4)
+    return jb, obs0, one, joined(load_ranks(out)), \
+        (jb4, joined(load_ranks(four, world=4)))
+
+
+def jax_eval_rollout(p_np, mesh):
+    """The JAX package's eval rollout of this file, sharded over ``mesh``."""
+    import jax
+    import jax.numpy as jnp
+
+    from mjrl_tpu.models import policies as jpol
+    from mjrl_tpu.models.fc_network import \
+        identity_transforms as jax_identity_transforms
+    from mjrl_tpu.samplers import rollout as jrollout
+    from test_torch_gym_suite import _TableHopper
+    from test_torch_policy import to_jax
+
+    jenv = _TableHopper(dtype=jnp.float64)
+    return jax.jit(lambda k: jrollout.rollout_batch(
+        jenv, jpol.GaussianMLP(11, 3, HID), to_jax(p_np),
+        jax_identity_transforms(11, 3, jnp.float64), k, B, horizon=T,
+        eval_mode=True, mesh=mesh))(jax.random.PRNGKey(5))
+
+
+def joined(ranks):
+    """The ranks' rows of every rollout put back together."""
+    return {k: {leaf: torch.cat([r[k][leaf] for r in ranks])
+                for leaf in ranks[0][k]} for k in ranks[0]}
 
 
 def close(a, b, tol):
@@ -133,22 +160,37 @@ def close(a, b, tol):
 @pytest.mark.parametrize("leaf", ["observations", "actions", "rewards",
                                   "mask", "terminated"])
 def test_sharded_eval_rollout_matches_the_jax_sharded_rollout(results, leaf):
-    jb, obs0, _, two = results
+    jb, obs0, _, two, _ = results
     close(jb["observations"][:, 0], obs0, 1e-15)  # the same starts
     assert len(jb["observations"].sharding.device_set) == 8
     close(two["eval"][leaf], jb[leaf], ROLLOUT_TOL)
 
 
 def test_eval_batch_has_terminated_and_full_episodes(results):
-    _, _, _, two = results
+    _, _, _, two, _ = results
     lengths = two["eval"]["mask"].sum(1)
     assert float(lengths.min()) < T or bool(two["noise"]["terminated"].any())
 
 
 @pytest.mark.parametrize("name", ["eval", "noise", "autoreset", "drawn"])
 def test_two_ranks_equal_one_rank_exactly(results, name):
-    _, _, one, two = results
+    _, _, one, two, _ = results
     for leaf in two[name]:
         close(two[name][leaf], one[name][leaf], 0.0)
     if name == "autoreset":
         assert float(two[name]["dones"].sum()) > 0
+
+
+@pytest.mark.parametrize("name", ["eval", "noise", "autoreset", "drawn"])
+def test_four_ranks_equal_one_rank(results, name):
+    one, four = results[2], results[4][1]
+    for leaf in four[name]:
+        close(four[name][leaf], one[name][leaf], RANK_TOL)
+
+
+@pytest.mark.parametrize("leaf", ["observations", "actions", "rewards",
+                                  "mask", "terminated"])
+def test_four_rank_eval_rollout_matches_jax_on_4_devices(results, leaf):
+    jb, four = results[4]
+    assert len(jb["observations"].sharding.device_set) == 4
+    close(four["eval"][leaf], jb[leaf], ROLLOUT_TOL)

@@ -27,20 +27,32 @@ damping 1e-4 by as much as the two ranks do.  In the first iteration the policy 
 sums, no CG solve) agree to 1e-10 in both, and the CG direction is the
 first quantity to drift.
 
+Four ranks (2 rows each) take the Hopper run's two steps and equal one
+rank as two do.
+
+``train_agent`` on the two ranks (the point mass with its horizon cut to
+5, an MLPBaseline, evaluation rollouts, ``save_freq`` 1): 2 iterations,
+then a resume for 1 more, against 3 uninterrupted iterations on the ranks
+and the same runs on one rank: one job directory holding the files one
+rank leaves, the resumed run equal to the uninterrupted one bit for bit on
+every rank, and an agent that pickles under the mesh without it.
+
 The ranks import this file, which imports no JAX.
 """
 
 import os
+import pickle
 
 import numpy as np
 import pytest
 import torch
 
 from mjrl_tpu_torch.algos import NPG
-from mjrl_tpu_torch.baselines import LinearBaseline
+from mjrl_tpu_torch.baselines import LinearBaseline, MLPBaseline
 from mjrl_tpu_torch.envs import GymEnv
 from mjrl_tpu_torch.models.policies import MLP
 from mjrl_tpu_torch.parallel import make_mesh
+from mjrl_tpu_torch.utils.train_agent import train_agent
 
 from test_torch_parallel_mesh import (init_ranks, join_ranks, load_ranks,
                                       spawn_ranks)
@@ -116,22 +128,88 @@ def train(mesh, runs=tuple(RUNS), reverse=False):
     return out
 
 
+def job_agent(mesh):
+    """NPG on the point mass (horizon cut to 5) with an MLPBaseline."""
+    e = GymEnv("mjrl_point_mass-v0", device="cpu",
+               env_kwargs={"dtype": torch.float64})
+    e.env.horizon = 5
+    policy = MLP(e.spec, hidden_sizes=(8, 8), seed=3, dtype=torch.float64,
+                 device="cpu")
+    baseline = MLPBaseline(e.spec, batch_size=8, epochs=1,
+                           dtype=torch.float64, device="cpu")
+    return NPG(e, policy, baseline, normalized_step_size=0.05, seed=5,
+               save_logs=True, FIM_invert_args={"iters": 10, "damping": 1.0},
+               device="cpu", mesh=mesh)
+
+
+def job_files(job):
+    return sorted(os.path.relpath(os.path.join(d, f), job)
+                  for d, _, fs in os.walk(job) for f in fs)
+
+
+def agent_state(agent):
+    return {**agent.policy.params, "baseline": torch.cat(
+                [v.reshape(-1) for v in agent.baseline.state[0].values()]),
+            "generator": agent.generator.get_state().double(),
+            "baseline_generator":
+                agent.baseline.generator.get_state().double(),
+            "policy_generator": agent.policy.generator.get_state().double(),
+            "stats": torch.tensor([agent.logger.log[k][-1] for k in LOGGED
+                                   if k in agent.logger.log])}
+
+
+def train_jobs(mesh, root):
+    """train_agent: 2 iterations, a resume for 1 more, and 3 uninterrupted
+    iterations, each job under ``root``."""
+    kw = dict(seed=0, gamma=0.995, gae_lambda=0.97, num_traj=8,
+              save_freq=1, evaluation_rollouts=2)
+    resumed, whole = os.path.join(root, "resumed"), \
+        os.path.join(root, "whole")
+    first = train_agent(resumed, job_agent(mesh), niter=2, **kw)
+    files = job_files(resumed)
+    again = job_agent(mesh)
+    train_agent(resumed, again, niter=3, **kw)
+    uninterrupted = train_agent(whole, job_agent(mesh), niter=3, **kw)
+    copy = pickle.loads(pickle.dumps(uninterrupted))
+    with open(os.path.join(resumed, "results.txt")) as f:
+        results = f.read()
+    return {"first": agent_state(first), "resumed": agent_state(again),
+            "whole": agent_state(uninterrupted),
+            "files": files, "files_after_resume": job_files(resumed),
+            "results": results, "pickled_mesh": copy.mesh,
+            "policy_device": str(again.policy.device)}
+
+
 def train_worker(rank, world, init_method, out_dir):
     init_ranks(rank, world, init_method)
-    mesh = make_mesh()
+    mesh = make_mesh(device="cpu")
     out = train(mesh)
     out["collectives"] = {"count": torch.tensor(mesh.collectives)}
+    out["jobs"] = train_jobs(mesh, os.path.join(out_dir, "jobs"))
     torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
 
 
 @pytest.fixture(scope="module")
 def results(tmp_path_factory):
     out = tmp_path_factory.mktemp("train_ranks")
+    out4 = tmp_path_factory.mktemp("train_4_ranks")
     procs = spawn_ranks("test_torch_parallel_train", "train_worker", out)
+    procs4 = spawn_ranks("test_torch_parallel_train", "train4_worker", out4,
+                         world=4)
     one = train(None)
     one["reversed"] = train(None, ("hopper_default_damping",), reverse=True)
+    one["jobs"] = train_jobs(None, str(tmp_path_factory.mktemp("one_job")))
     join_ranks(procs)
-    return one, load_ranks(out)
+    join_ranks(procs4)
+    return one, [torch.load(os.path.join(str(out), f"rank{r}.pt"),
+                            weights_only=False) for r in range(2)], \
+        load_ranks(out4, world=4)
+
+
+def train4_worker(rank, world, init_method, out_dir):
+    init_ranks(rank, world, init_method)
+    torch.save(train(make_mesh(device="cpu"), ("hopper",)),
+               os.path.join(out_dir, f"rank{rank}.pt"))
 
 
 def rel(a, b):
@@ -153,16 +231,29 @@ def close(a, b, rtol, atol=None):
 
 @pytest.mark.parametrize("name", sorted(RUNS))
 def test_draws_stay_in_lockstep_with_one_rank(results, name):
-    one, ranks = results
+    one, ranks, _ = results
     for r in ranks:
         for k in ("generator", "num_samples"):
             close(r[name][k], one[name][k], 0.0)
         close(r[name]["stats"][0], one[name]["stats"][0], 0.0)
 
 
+def test_four_rank_train_steps_equal_one_rank(results):
+    one, _, ranks4 = results
+    one = one["hopper"]
+    for r in ranks4:
+        assert set(r["hopper"]) == set(one)
+        for k in ("generator", "num_samples"):
+            close(r["hopper"][k], one[k], 0.0)
+        close(r["hopper"]["stats"][0], one["stats"][0], 0.0)
+        for k, v in one.items():
+            close(r["hopper"][k], v, TOL)
+            close(r["hopper"][k], ranks4[0]["hopper"][k], 0.0)
+
+
 @pytest.mark.parametrize("name", ["point_mass", "hopper"])
 def test_two_rank_train_steps_equal_one_rank(results, name):
-    one, ranks = results
+    one, ranks, _ = results
     assert set(ranks[0][name]) == set(one[name])
     for k, v in one[name].items():
         close(ranks[0][name][k], v, TOL)
@@ -170,7 +261,7 @@ def test_two_rank_train_steps_equal_one_rank(results, name):
 
 
 def test_default_damping_within_the_jax_bounds(results):
-    one, ranks = results
+    one, ranks, _ = results
     name = "hopper_default_damping"
     for k, v in one[name].items():
         bounds = JAX_PARAMS if k.startswith("layers.") or k in (
@@ -180,7 +271,7 @@ def test_default_damping_within_the_jax_bounds(results):
 
 
 def test_reordered_rows_alone_drift_as_far_at_default_damping(results):
-    one, ranks = results
+    one, ranks, _ = results
     rev = one["reversed"]
     name = "hopper_default_damping"
     by_order, by_ranks = drift(rev[name], one[name]), \
@@ -201,9 +292,41 @@ def test_reordered_rows_alone_drift_as_far_at_default_damping(results):
 def test_the_runs_do_real_work(results):
     """The point mass logs its success rate, the policy moved, and the
     ranks issued collectives."""
-    one, ranks = results
+    one, ranks, _ = results
     hop = one["hopper"]
     assert "success_rate" in one["point_mass"]
     assert bool(torch.isfinite(hop["stats"]).all())
     assert float(hop["kl_dist"].min()) > 0
     assert int(ranks[0]["collectives"]["count"]) > 40
+
+
+def test_train_agent_on_two_ranks_leaves_one_ranks_job(results):
+    """Rank 0 alone writes: one job directory with the files one rank
+    leaves, its results.txt the same; every rank resumed onto its device
+    and the agent pickles without its mesh."""
+    one, ranks, _ = results
+    assert ranks[0]["jobs"]["files"] == one["jobs"]["files"]
+    assert "iterations/checkpoint_1.pickle" in one["jobs"]["files"]
+    assert ranks[0]["jobs"]["files_after_resume"] == \
+        one["jobs"]["files_after_resume"]
+    for r in ranks:
+        assert r["jobs"]["results"] == one["jobs"]["results"]
+        assert r["jobs"]["pickled_mesh"] is None
+        assert r["jobs"]["policy_device"] == "cpu"
+
+
+@pytest.mark.parametrize("run", ["first", "resumed", "whole"])
+def test_train_agent_on_two_ranks_equals_one_rank(results, run):
+    one, ranks, _ = results
+    for k, v in one["jobs"][run].items():
+        tol = 0.0 if "generator" in k else TOL
+        close(ranks[0]["jobs"][run][k], v, tol)
+        close(ranks[1]["jobs"][run][k], ranks[0]["jobs"][run][k], 0.0)
+
+
+def test_train_agent_resume_equals_the_uninterrupted_run(results):
+    """On one rank and on every rank of two, bit for bit."""
+    one, ranks, _ = results
+    for res in [one] + ranks:
+        for k, v in res["jobs"]["whole"].items():
+            close(res["jobs"]["resumed"][k], v, 0.0)

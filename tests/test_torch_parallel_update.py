@@ -20,8 +20,11 @@ rows, each rank taking 4 paths, and goes through:
   with the members' drawn permutations: the same losses, stacked
   parameters, ``predict_all`` and generator states as one rank, at 1e-12.
 
-Both ranks must hold the same result, bit for bit.  The ranks import this
-file, which imports JAX only inside its fixture.
+Both ranks must hold the same result, bit for bit.  The same cases on four
+ranks (2 paths and one ensemble member each) equal one rank at the same
+tolerances, and their NPG update equals the JAX package's ``_update_core``
+with the batch sharded over 4 of the 8 virtual devices at ``SOLVE_TOL``.
+The ranks import this file, which imports JAX only inside its fixtures.
 """
 
 import os
@@ -155,7 +158,7 @@ def cases(inp, mesh):
 def update_worker(rank, world, init_method, out_dir):
     init_ranks(rank, world, init_method)
     inp = torch.load(os.path.join(out_dir, "inputs.pt"), weights_only=False)
-    torch.save(cases(inp, make_mesh()),
+    torch.save(cases(inp, make_mesh(device="cpu")),
                os.path.join(out_dir, f"rank{rank}.pt"))
 
 
@@ -169,13 +172,47 @@ def results(tmp_path_factory):
     inp = make_inputs()
     key = jax.random.PRNGKey(11)
     inp["mlp_key"], inp["mlp_perms"] = key, jax_perms(key, 2, N * T)
-    torch.save({k: v for k, v in inp.items() if k != "mlp_key"},
-               os.path.join(str(out), "inputs.pt"))
+    four = os.path.join(str(out), "four")
+    os.makedirs(four)
+    for d in (str(out), four):
+        torch.save({k: v for k, v in inp.items() if k != "mlp_key"},
+                   os.path.join(d, "inputs.pt"))
     procs = spawn_ranks("test_torch_parallel_update", "update_worker", out)
+    procs4 = spawn_ranks("test_torch_parallel_update", "update_worker", four,
+                         world=4)
     jax_out = jax_side(inp)
+    jax_out["npg_4_devices"] = jax_npg(inp, n_devices=4)
     one = cases(inp, None)
     join_ranks(procs)
-    return inp, one, load_ranks(out), jax_out
+    join_ranks(procs4)
+    return inp, one, load_ranks(out), jax_out, load_ranks(four, world=4)
+
+
+def jax_npg(inp, n_devices=None):
+    """The JAX package's NPG update on the whole batch, its rows sharded
+    over ``n_devices`` of the virtual devices when given."""
+    import jax
+    import jax.numpy as jnp
+
+    from mjrl_tpu.algos.npg_cg import NPG as JaxNPG
+    from mjrl_tpu.models import policies as jpol
+    from mjrl_tpu.models.fc_network import Transforms as JTransforms
+    from mjrl_tpu.parallel import batch_sharding
+    from mjrl_tpu.parallel import make_mesh as jax_make_mesh
+    J = lambda x: jnp.asarray(x, jnp.float64)
+    jpolicy = jpol.MLP(EnvSpec(OBS, ACT, T), hidden_sizes=HID)
+    jpolicy.params = jpolicy.old_params = jax.tree_util.tree_map(
+        J, inp["p_np"])
+    jpolicy.transforms = JTransforms(*(J(x) for x in inp["t_np"]))
+    flat = lambda k: J(inp[k].reshape((N * T,) + inp[k].shape[2:]))
+    rows = [flat(k) for k in ("obs", "act", "adv", "mask")]
+    if n_devices is not None:
+        sharding = batch_sharding(jax_make_mesh(n_devices))
+        rows = [jax.device_put(x, sharding) for x in rows]
+        assert len(rows[0].sharding.device_set) == n_devices
+    jagent = JaxNPG(None, jpolicy, None, normalized_step_size=0.05)
+    return jax.jit(jagent._update_core)(
+        jpolicy.params, jpolicy.transforms, *rows, jax.random.PRNGKey(0))
 
 
 def jax_side(inp):
@@ -183,21 +220,9 @@ def jax_side(inp):
     import jax
     import jax.numpy as jnp
 
-    from mjrl_tpu.algos.npg_cg import NPG as JaxNPG
     from mjrl_tpu.models import baselines as jbl
-    from mjrl_tpu.models import policies as jpol
-    from mjrl_tpu.models.fc_network import Transforms as JTransforms
     J = lambda x: jnp.asarray(x, jnp.float64)
-    jpolicy = jpol.MLP(EnvSpec(OBS, ACT, T), hidden_sizes=HID)
-    jpolicy.params = jpolicy.old_params = jax.tree_util.tree_map(
-        J, inp["p_np"])
-    jpolicy.transforms = JTransforms(*(J(x) for x in inp["t_np"]))
-    flat = lambda k: J(inp[k].reshape((N * T,) + inp[k].shape[2:]))
-    jagent = JaxNPG(None, jpolicy, None, normalized_step_size=0.05)
-    new, st = jax.jit(jagent._update_core)(
-        jpolicy.params, jpolicy.transforms, flat("obs"), flat("act"),
-        flat("adv"), flat("mask"), jax.random.PRNGKey(0))
-    out = {"npg": (new, st)}
+    out = {"npg": jax_npg(inp)}
     obs, rets, mask = J(inp["obs"]), J(inp["rets"]), J(inp["mask"])
     for name, cfg in (("linear", jbl.LinearBaseline(OBS)),
                       ("quadratic", jbl.QuadraticBaseline(OBS))):
@@ -221,7 +246,7 @@ CASES = ("npg", "npg_sub", "trpo", "ppo", "dapg", "linear", "quadratic",
 
 @pytest.mark.parametrize("case", CASES)
 def test_two_ranks_equal_one_rank(results, case):
-    _, one, ranks, _ = results
+    _, one, ranks, _, _ = results
     tol = ENS_TOL if case == "ensemble" else RANK_TOL
     assert set(ranks[0][case]) == set(one[case])
     for k, v in one[case].items():
@@ -230,10 +255,29 @@ def test_two_ranks_equal_one_rank(results, case):
         close(ranks[1][case][k], ranks[0][case][k], 0.0)
 
 
+@pytest.mark.parametrize("case", CASES)
+def test_four_ranks_equal_one_rank(results, case):
+    one, ranks = results[1], results[4]
+    tol = ENS_TOL if case == "ensemble" else RANK_TOL
+    assert set(ranks[0][case]) == set(one[case])
+    for k, v in one[case].items():
+        close(ranks[0][case][k], v, tol)
+        for r in ranks[1:]:
+            close(r[case][k], ranks[0][case][k], 0.0)
+
+
 def test_sharded_npg_update_matches_jax(results):
-    _, _, ranks, jax_out = results
-    jnew, jst = jax_out["npg"]
-    got = ranks[0]["npg"]
+    _, _, ranks, jax_out, _ = results
+    check_npg_against_jax(ranks[0]["npg"], jax_out["npg"])
+
+
+def test_four_rank_npg_update_matches_the_jax_update_on_4_devices(results):
+    _, _, _, jax_out, ranks = results
+    check_npg_against_jax(ranks[0]["npg"], jax_out["npg_4_devices"])
+
+
+def check_npg_against_jax(got, jax_out):
+    jnew, jst = jax_out
     tree = convert.params_to_numpy({k: v for k, v in got.items()
                                     if k not in STATS})
     for lg, lj in zip(tree["layers"], jnew["layers"]):
@@ -246,7 +290,7 @@ def test_sharded_npg_update_matches_jax(results):
 
 @pytest.mark.parametrize("case", ["linear", "quadratic", "mlp"])
 def test_sharded_baseline_fits_match_jax(results, case):
-    _, _, ranks, jax_out = results
+    _, _, ranks, jax_out, _ = results
     got = ranks[0][case]
     jstate, je0, je1 = jax_out[case]
     if case == "mlp":
@@ -265,7 +309,7 @@ def test_sharded_baseline_fits_match_jax(results, case):
 def test_the_cases_do_real_work(results):
     """The demo rows split unevenly, the subsampled Fisher differs from the
     full one, the ensemble's members differ and each fitted 8 steps."""
-    inp, one, _, _ = results
+    inp, one, _, _, _ = results
     assert sum(len(d["observations"]) for d in inp["demos"]) % 2 == 1
     assert float((one["npg_sub"]["layers.0.weight"]
                   - one["npg"]["layers.0.weight"]).abs().max()) > 1e-8

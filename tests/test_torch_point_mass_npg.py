@@ -56,12 +56,16 @@ def job():
 
 
 def _jax_draws(jenv, key):
-    keys = jax.random.split(key, B)
-    k_reset, k_scan = jax.vmap(jax.random.split)(keys).transpose(1, 0, 2)
-    s0 = jax.vmap(jenv.reset)(k_reset)
-    kt = jax.vmap(lambda k: jax.random.split(k, T))(k_scan)
-    noise = jax.vmap(jax.vmap(lambda k: jax.random.normal(
-        k, (2,), jnp.float64)))(kt)
+    @jax.jit
+    def draws(key):               # one program: eagerly, each op compiles
+        keys = jax.random.split(key, B)
+        k_reset, k_scan = jax.vmap(jax.random.split)(keys).transpose(1, 0,
+                                                                     2)
+        s0 = jax.vmap(jenv.reset)(k_reset)
+        kt = jax.vmap(lambda k: jax.random.split(k, T))(k_scan)
+        return s0, jax.vmap(jax.vmap(lambda k: jax.random.normal(
+            k, (2,), jnp.float64)))(kt)
+    s0, noise = draws(key)
     return (np.asarray(s0.physics.qpos), np.asarray(s0.physics.qvel),
             np.asarray(s0.scenery["target_pos"]),
             np.swapaxes(np.asarray(noise), 0, 1))

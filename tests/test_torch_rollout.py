@@ -324,7 +324,7 @@ def test_unported_rollout_options_raise(envs, policies, kwargs, match):
                   for r in range(kwargs["mesh"])]
         for k in ("observations", "actions", "rewards", "mask", "last_obs"):
             close(torch.cat([h[k] for h in halves]), plain[k], 0.0)
-            close(roll(B, mesh=make_mesh())[k], plain[k], 0.0)
+            close(roll(B, mesh=make_mesh(device="cpu"))[k], plain[k], 0.0)
         return
     got, plain = roll(**kwargs), roll()
     assert got["dones"].shape == (2, 2)

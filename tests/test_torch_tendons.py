@@ -83,11 +83,13 @@ def test_lengths_forces_and_limit_qacc_match_jax(name):
     jq, jv = jnp.asarray(q), jnp.asarray(v)
     pairs = [
         (tdyn.tendon_lengths(tm, tq),
-         jax.vmap(lambda a: jdyn.tendon_lengths(jm, a))(jq)),
+         jax.jit(jax.vmap(lambda a: jdyn.tendon_lengths(jm, a)))(jq)),
         (tdyn.tendon_passive_force(tm, tq, tv),
-         jax.vmap(lambda a, b: jdyn.tendon_passive_force(jm, a, b))(jq, jv)),
+         jax.jit(jax.vmap(lambda a, b: jdyn.tendon_passive_force(
+             jm, a, b)))(jq, jv)),
         (tdyn.tendon_limit_qacc(tm, tq, tv),
-         jax.vmap(lambda a, b: jdyn.tendon_limit_qacc(jm, a, b))(jq, jv)),
+         jax.jit(jax.vmap(lambda a, b: jdyn.tendon_limit_qacc(
+             jm, a, b)))(jq, jv)),
     ]
     for k, (g, w) in enumerate(pairs):
         w = np.asarray(w)

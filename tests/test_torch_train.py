@@ -179,7 +179,7 @@ def test_agent_rejects_mixed_devices_and_unported_options():
     with pytest.raises(ValueError, match="lives on"):
         NPG(e, policy, baseline, device="meta")
     # the mesh (M11) is ported: the agent keeps it for train_step
-    mesh = make_mesh()
+    mesh = make_mesh(device="cpu")
     assert NPG(e, policy, baseline, device="cpu", mesh=mesh).mesh is mesh
     # autoreset (queue 1) is ported: the agent takes it
     assert NPG(e, policy, baseline, device="cpu", autoreset=True).autoreset
