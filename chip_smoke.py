@@ -242,6 +242,26 @@ fails, and this process stops torchrun after 420 s.
             On four cards, Hopper NPG seconds per iteration at R = 1, 2 and
             4: strong (4096 rows split R ways) and weak (R x 4096 rows).
 
+The learning path (``learning``): a policy the JAX package trained, and
+the port's learning CLI, each printing its seconds and its launches of K1
+and K2:
+
+47. hopper_jax_policy_card  the JAX package's trained Hopper-v3 policy
+            (tests/golden/torch_hopper_npg_jax_policy.npz, loaded through
+            convert) rolled 100 x 1000 stochastically and 100 x 1000 in
+            eval_mode on the card (tools/torch_hopper_transplant.py): 2000
+            K2 launches; the port's mean return, standard error and mean
+            length beside the JAX package's float32 CPU evaluation stored
+            in the golden; fails when the stochastic means lie more than 4
+            combined standard errors apart.  Every 100th K2 launch of the
+            path (20, B 100) keeps its inputs and outputs and is held
+            against the plain step on them (float32: 3e-4 in q, 3e-3 in v
+            relative to the largest velocity).
+48. train_gym_hopper  tools/torch_train_gym.py's main in this process:
+            Hopper-v3, 100 trajectories x 1000, 3 iterations, step 0.1 (the
+            agent of tools/bench_hopper.py): every key of the JAX tool's row
+            present and finite in each row, 3000 K2 launches.
+
 Each phase's launches are counted from just before it to just after.  The
 last line is {"ok": true, "device": {...}}.
 """
@@ -304,6 +324,7 @@ NITER = 3
 HOPPER_HORIZON = 1000
 HERE = os.path.dirname(os.path.abspath(__file__))
 EXAMPLES = os.path.join(HERE, "examples")
+TOOLS = os.path.join(HERE, "tools")
 SMOOTH, CONTACT = "planar_step_smooth", "planar_step_contact"
 # contact kernel vs plain version, float32: the bounds of the JAX package's
 # own float32 check of this branch (positions 3e-4; velocities 3e-3, here
@@ -948,10 +969,10 @@ def phase_train(env_id, step_size, horizon, kernel, phase):
     return counts[kernel]
 
 
-def example_module(name):
-    """The module of examples/<name>.py."""
+def example_module(name, folder=EXAMPLES):
+    """The module of examples/<name>.py (or of <folder>/<name>.py)."""
     spec = importlib.util.spec_from_file_location(
-        name, os.path.join(EXAMPLES, f"{name}.py"))
+        name, os.path.join(folder, f"{name}.py"))
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -3592,6 +3613,105 @@ def phase_m11_cards(kernel, contact, m11_refs):
     emit({"phase": "m11_cards_block", "seconds": time.time() - t_start})
 
 
+def phase_hopper_jax_policy_card(contact, every=100):
+    """The JAX package's trained Hopper-v3 policy on the card: 100 x 1000
+    paths stochastic and in eval_mode (K2), held against the JAX package's
+    CPU evaluation stored with the policy (4 combined standard errors).
+    Every ``every``-th launch of K2 on this path keeps its inputs and
+    outputs, and is held against the plain step on those inputs at the
+    float32 bounds of the kernels phase; the worst error joins
+    ``contact``'s ``max_abs_err``."""
+    from mjrl_tpu_torch.envs import base as env_base
+    transplant = example_module("torch_hopper_transplant", TOOLS)
+    launched = env_base.cuda_step_n_batched
+    calls, n_calls = [], [0]
+
+    def kept(p, q, v, u, n, lanes=None):
+        gq, gv = launched(p, q, v, u, n, lanes=lanes)
+        if n_calls[0] % every == 0:
+            calls.append((p, n, q.clone(), v.clone(), u.clone(), gq.clone(),
+                          gv.clone()))
+        n_calls[0] += 1
+        return gq, gv
+
+    env_base.cuda_step_n_batched = kept
+    try:
+        out, counts, seconds = run_counted(lambda: transplant.evaluate(
+            transplant.GOLDEN, "cuda", ntraj=100, horizon=HOPPER_HORIZON))
+    finally:
+        env_base.cuda_step_n_batched = launched
+    if counts != {CONTACT: 2 * HOPPER_HORIZON, SMOOTH: 0}:
+        raise AssertionError(f"hopper_jax_policy_card: launched {counts}")
+    t0 = time.time()
+    tol_q, tol_v = CONTACT_TOL[torch.float32]
+    err_q = err_v = 0.0
+    for p, n, q, v, u, gq, gv in calls:
+        if q.shape[0] != 100 or q.dtype != torch.float32:
+            raise AssertionError(f"hopper_jax_policy_card: K2 given "
+                                 f"{tuple(q.shape)} {q.dtype}")
+        rq, rv = step_n_arrays(p, q, v, u, n)
+        torch.testing.assert_close(gq, rq, rtol=tol_q, atol=tol_q)
+        torch.testing.assert_close(
+            gv, rv, rtol=tol_v, atol=tol_v * max(1.0, rv.abs().max().item()))
+        err_q = max(err_q, (gq - rq).abs().max().item())
+        err_v = max(err_v, (gv - rv).abs().max().item())
+    check = {"path": "hopper_jax_policy_card", "B": 100,
+             "launches_checked": len(calls), "every": every,
+             "max_abs_err_q": err_q, "max_abs_err_v": err_v,
+             "tolerance": [tol_q, tol_v], "seconds": time.time() - t0}
+    if len(calls) != 2 * HOPPER_HORIZON // every:
+        raise AssertionError(f"hopper_jax_policy_card: kept {len(calls)}")
+    contact["max_abs_err"] = max(contact["max_abs_err"], err_q, err_v)
+    contact["checks"].append(check)
+    line = {"phase": "hopper_jax_policy_card", "ntraj": 100,
+            "horizon": HOPPER_HORIZON, "seconds": seconds,
+            "kernel_launches": counts, "max_z": transplant.MAX_Z,
+            "k2_check": check}
+    for mode in ("stoch", "eval"):
+        line[mode] = {k: out[mode][k] for k in ("port", "jax", "z",
+                                                "seconds")}
+    emit(line)
+    if not abs(out["stoch"]["z"]) <= transplant.MAX_Z:
+        raise AssertionError(
+            f"hopper_jax_policy_card: the port's mean return "
+            f"{out['stoch']['port']['mean']} lies {out['stoch']['z']} "
+            f"combined standard errors from the JAX package's "
+            f"{out['stoch']['jax']['mean']}")
+    return counts
+
+
+def phase_train_gym_hopper():
+    """tools/torch_train_gym.py's main on the card: bench_hopper's agent,
+    100 x 1000, 3 iterations; every row key of the JAX tool, finite."""
+    import io
+    gym = example_module("torch_train_gym", TOOLS)
+    buf = io.StringIO()
+    argv = ["--env", "Hopper-v3", "--ntraj", "100", "--iters", str(NITER),
+            "--step_size", "0.1"]
+    with contextlib.redirect_stdout(buf):
+        (agent, rows, summary), counts, seconds = run_counted(
+            lambda: gym.main(argv))
+    if counts != {CONTACT: NITER * HOPPER_HORIZON, SMOOTH: 0}:
+        raise AssertionError(f"train_gym_hopper: launched {counts}")
+    keys = {"iter", "mean_return", "elapsed_s", "log_std", "ep_len",
+            *gym.ROW_KEYS}
+    printed = [json.loads(x) for x in buf.getvalue().splitlines()]
+    if printed[:NITER] != rows or len(rows) != NITER:
+        raise AssertionError(f"train_gym_hopper: printed {printed}")
+    for row in rows:
+        if set(row) != keys or not all(np.isfinite(v)
+                                       for v in row.values()):
+            raise AssertionError(f"train_gym_hopper: row {row}")
+    if agent.device.type != "cuda":
+        raise AssertionError(f"train_gym_hopper: ran on {agent.device}")
+    log = agent.logger.log
+    emit({"phase": "train_gym_hopper", "argv": argv, "seconds": seconds,
+          "kernel_launches": counts, "rows": rows, "summary": summary,
+          "time_sampling": log["time_sampling"], "time_npg": log["time_npg"],
+          "time_VF": log["time_VF"]})
+    return counts
+
+
 def main():
     t_start = time.time()
     phase = "device"
@@ -3729,6 +3849,19 @@ def main():
         # M11 on every card of one host, through torchrun
         phase = "m11_cards"
         phase_m11_cards(kernel, contact, m11_refs)
+        # the learning path: a JAX-package policy and the learning CLI
+        phase_seconds = {}
+        for phase, fn in (
+                ("hopper_jax_policy_card",
+                 lambda: phase_hopper_jax_policy_card(contact)),
+                ("train_gym_hopper", phase_train_gym_hopper)):
+            t0 = time.time()
+            counts = fn()
+            phase_seconds[phase] = time.time() - t0
+            kernel["launches_by_path"][phase] = counts[SMOOTH]
+            contact["launches_by_path"][phase] = counts[CONTACT]
+        emit({"phase": "learning", "phase_seconds": phase_seconds,
+              "seconds": sum(phase_seconds.values())})
     except Exception:
         traceback.print_exc()
         print(f"chip_smoke: phase '{phase}' failed", file=sys.stderr)

@@ -1,8 +1,8 @@
 """Hopper-v3 NPG to a return of 3000 on every card of one host, through
 ``torchrun``, ``parallel.distributed.initialize()`` and ``train_agent``
 (the agent and loop of ``tools/bench_hopper.py``: 64-64 policy,
-init_log_std -0.25, MLPBaseline, step 0.1, seed 123, 100 trajectories of
-1000 steps split over the ranks).
+init_log_std -0.25, MLPBaseline, step 0.1, 100 trajectories of 1000 steps
+split over the ranks; seed 123 unless ``--seed`` is given).
 
     torchrun --standalone --nproc-per-node 4 examples/torch_hopper_npg_cards.py
 
@@ -40,6 +40,7 @@ def main(argv=None):
     ap.add_argument("--num_traj", type=int, default=100)
     ap.add_argument("--save_freq", type=int, default=25)
     ap.add_argument("--job", default="hopper_npg_cards")
+    ap.add_argument("--seed", type=int, default=123)
     args = ap.parse_args(argv)
 
     pdist.initialize()                  # binds LOCAL_RANK's card first
@@ -51,11 +52,12 @@ def main(argv=None):
     from mjrl_tpu_torch.models.policies import MLP
     from mjrl_tpu_torch.utils.train_agent import train_agent
     e = GymEnv("Hopper-v3")
-    policy = MLP(e.spec, hidden_sizes=(64, 64), seed=123, init_log_std=-0.25)
+    policy = MLP(e.spec, hidden_sizes=(64, 64), seed=args.seed,
+                 init_log_std=-0.25)
     baseline = MLPBaseline(e.spec, reg_coef=1e-3, batch_size=64, epochs=2,
                            learn_rate=1e-3)
-    agent = NPG(e, policy, baseline, normalized_step_size=0.1, seed=123,
-                save_logs=True, mesh=mesh)
+    agent = NPG(e, policy, baseline, normalized_step_size=0.1,
+                seed=args.seed, save_logs=True, mesh=mesh)
     record, step = [], agent.train_step
     t0 = time.time()
 
@@ -74,7 +76,7 @@ def main(argv=None):
         return stats
     agent.train_step = timed
     try:
-        train_agent(args.job, agent, seed=123, niter=args.niter,
+        train_agent(args.job, agent, seed=args.seed, niter=args.niter,
                     gamma=0.995, gae_lambda=0.97, num_traj=args.num_traj,
                     save_freq=args.save_freq)
     except Crossed:

@@ -76,6 +76,40 @@ def policy_params_to_numpy(policy):
             tuple(_np(t).astype(np.float64) for t in policy.transforms))
 
 
+_TRANSFORMS = ("in_shift", "in_scale", "out_shift", "out_scale")
+
+
+def policy_npz_arrays(params, transforms):
+    """A JAX-layout policy pytree and its 4 transforms (numpy or anything
+    ``np.asarray`` takes) -> the flat arrays of a policy ``.npz``:
+    ``layers.<i>.w`` (in, out), ``layers.<i>.b``, ``log_std`` and the four
+    transforms by name (the layout of the JAX pytree, key by key)."""
+    arrays = {"log_std": np.asarray(params["log_std"])}
+    for i, layer in enumerate(params["layers"]):
+        arrays[f"layers.{i}.w"] = np.asarray(layer["w"])
+        arrays[f"layers.{i}.b"] = np.asarray(layer["b"])
+    arrays.update(zip(_TRANSFORMS, (np.asarray(t) for t in transforms)))
+    return arrays
+
+
+def save_policy_npz(path, policy):
+    """``policy_params_to_numpy`` of a port ``Policy`` as a flat ``.npz``
+    in ``policy_npz_arrays``' layout, float64."""
+    np.savez(path, **policy_npz_arrays(*policy_params_to_numpy(policy)))
+
+
+def load_policy_npz(path):
+    """-> (JAX-layout parameter pytree, 4-tuple of transforms) of an
+    ``.npz`` in ``policy_npz_arrays``' layout (other keys are ignored), for
+    ``policy_params_from_numpy``."""
+    z = np.load(path)
+    n = sum(1 for k in z.files if k.startswith("layers.") and k.endswith(".w"))
+    params = {"layers": [{"w": z[f"layers.{i}.w"], "b": z[f"layers.{i}.b"]}
+                         for i in range(n)],
+              "log_std": z["log_std"]}
+    return params, tuple(z[k] for k in _TRANSFORMS)
+
+
 def linear_baseline_from_numpy(baseline, coeffs):
     """Load least-squares coefficients (the JAX LinearBaseline or
     QuadraticBaseline state) into the port's host object of that kind."""

@@ -1,8 +1,9 @@
 """The port stands apart: every module of ``mjrl_tpu_torch``,
-``chip_smoke.py`` and every ``examples/torch_*.py`` imports in a process
-where ``jax``, the JAX package and the optional drawing, video and
-environment packages cannot be imported at all (``sys.modules[name] =
-None`` makes any import of them raise)."""
+``chip_smoke.py``, every ``examples/torch_*.py`` and every
+``tools/torch_*.py`` imports in a process where ``jax``, the JAX package
+and the optional drawing, video and environment packages cannot be
+imported at all (``sys.modules[name] = None`` makes any import of them
+raise)."""
 
 import os
 import subprocess
@@ -25,9 +26,10 @@ SCRIPT = textwrap.dedent("""
         importlib.import_module(info.name)
         names.append(info.name)
     files = [os.path.join(repo, "chip_smoke.py")] + sorted(
-        os.path.join(repo, "examples", f)
-        for f in os.listdir(os.path.join(repo, "examples"))
+        os.path.join(repo, d, f) for d in ("examples", "tools")
+        for f in os.listdir(os.path.join(repo, d))
         if f.startswith("torch_") and f.endswith(".py"))
+    sys.path.insert(0, os.path.join(repo, "tools"))
     for path in files:
         name = os.path.splitext(os.path.basename(path))[0]
         spec = importlib.util.spec_from_file_location(name, path)
@@ -60,6 +62,7 @@ def test_every_port_module_imports_without_jax_or_drawing_packages():
                 "mjrl_tpu_torch.utils.profiling",
                 "mjrl_tpu_torch.utils.optimize_model", "chip_smoke",
                 "torch_visualizer_smoke", "torch_linear_nn_comparison",
-                "torch_point_mass_smoke"):
+                "torch_point_mass_smoke", "torch_train_gym",
+                "torch_bench_hopper", "torch_hopper_transplant"):
         assert new in names, new
     assert int(count) == len(names) > 70

@@ -15,7 +15,8 @@ rows, each rank taking 4 paths, and goes through:
 - the linear, quadratic and MLP baselines (injected permutations): against
   the one-rank port at 1e-10 and the JAX package's fits at the tolerances
   of ``tests/test_torch_baselines.py`` (1e-8 for the least squares, 1e-10
-  for Adam);
+  for Adam); the MLP fit also with its permutations drawn by its own
+  generator, as the learning runs draw them: against one rank at 1e-10;
 - a 4-member ``WorldModelEnsemble`` on the mesh, 2 members a rank, fitted
   with the members' drawn permutations: the same losses, stacked
   parameters, ``predict_all`` and generator states as one rank, at 1e-12.
@@ -141,6 +142,13 @@ def cases(inp, mesh):
                                     mesh=mesh)
     out["mlp"] = {**params, "e0": e0, "e1": e1,
                   **{f"nu.{k}": v for k, v in opt["nu"].items()}}
+    # the same fit with its permutations drawn by a generator of its own,
+    # seeded alike on every rank, as the learning runs draw them
+    gen = torch.Generator().manual_seed(5)
+    (params, _), e0, e1 = cfg.fit(mlp_state(inp["mlp_layers"], cfg), b_obs,
+                                  b_rets, b_mask, generator=gen, mesh=mesh)
+    out["mlp_generator"] = {**params, "e0": e0, "e1": e1,
+                            "generator": gen.get_state().double()}
     # the ensemble, its model axis over the mesh
     ens = WorldModelEnsemble(4, D, A, seed=3, hidden_size=(16, 16),
                              device="cpu", dtype=torch.float64, mesh=mesh)
@@ -241,7 +249,7 @@ def close(a, b, tol):
 
 
 CASES = ("npg", "npg_sub", "trpo", "ppo", "dapg", "linear", "quadratic",
-         "mlp", "ensemble")
+         "mlp", "mlp_generator", "ensemble")
 
 
 @pytest.mark.parametrize("case", CASES)
