@@ -212,7 +212,7 @@ printing its seconds and its launches of K1 and K2 (per rank):
 45. m11_ensemble  a 4-member WorldModelEnsemble (float64) fitted and
             queried on the two ranks, two members each, against one rank
             (1e-10); then the seconds per iteration at one rank, at world
-            size 1 and on two ranks, with the collectives' count and time.
+            size 1 and on two ranks, with the collectives' count.
             Two ranks on one card measure correctness and overhead, not
             scaling.  The pair has 300 s; a failing rank stops the other.
 
@@ -237,8 +237,8 @@ fails, and this process stops torchrun after 420 s.
             swimmers, 12 at R = 4) and a 4-member float64 ensemble against
             one rank (1e-12); one K2 and one K1 launch on each rank's 4096 /
             R rows against the plain version.  Printed per rank, not held:
-            seconds per iteration, launches, collectives and their host
-            seconds, the device's busy share over a 20-step rollout window.
+            seconds per iteration, launches, collectives, the device's
+            busy share over a 20-step rollout window.
             On four cards, Hopper NPG seconds per iteration at R = 1, 2 and
             4: strong (4096 rows split R ways) and weak (R x 4096 rows).
 
@@ -2856,7 +2856,6 @@ def m11_hopper_iteration(mesh=None, num_envs=NUM_ENVS):
     LinearBaseline) through NPG(..., mesh=mesh), seed 21."""
     agent = hopper_npg_agent(21, mesh)
     c0 = 0 if mesh is None else mesh.collectives
-    s0 = 0.0 if mesh is None else mesh.collective_seconds
     params0 = agent.policy.get_param_values()
     t0 = time.time()
     stats = agent.train_step(N=num_envs, horizon=HOPPER_HORIZON,
@@ -2871,9 +2870,7 @@ def m11_hopper_iteration(mesh=None, num_envs=NUM_ENVS):
             "num_samples": log["num_samples"], "kl_dist": log["kl_dist"],
             "time_sampling": log["time_sampling"],
             "time_npg": log["time_npg"], "time_VF": log["time_VF"],
-            "collectives": 0 if mesh is None else mesh.collectives - c0,
-            "collective_seconds": 0.0 if mesh is None
-            else mesh.collective_seconds - s0}
+            "collectives": 0 if mesh is None else mesh.collectives - c0}
 
 
 def m11_swimmer_ppo_iteration(mesh=None, num_traj=None):
@@ -2888,7 +2885,6 @@ def m11_swimmer_ppo_iteration(mesh=None, num_traj=None):
         job["rl_num_traj"] = num_traj
     agent = job_script().build_agent(job)
     c0 = 0 if mesh is None else mesh.collectives
-    s0 = 0.0 if mesh is None else mesh.collective_seconds
     params0 = agent.policy.get_param_values()
     t0 = time.time()
     stats = agent.train_step(N=job["rl_num_traj"],
@@ -2905,9 +2901,7 @@ def m11_swimmer_ppo_iteration(mesh=None, num_traj=None):
             "num_samples": log["num_samples"], "t_opt": log["t_opt"],
             "time_VF": log["time_VF"],
             "ppo_adam_steps": int(agent.opt_state["count"]),
-            "collectives": 0 if mesh is None else mesh.collectives - c0,
-            "collective_seconds": 0.0 if mesh is None
-            else mesh.collective_seconds - s0}
+            "collectives": 0 if mesh is None else mesh.collectives - c0}
 
 
 def m11_ensemble(mesh=None):
@@ -3060,7 +3054,6 @@ def phase_m11_world1_hopper():
           "kernel_launches": counts, "max_rel_diff": diffs, "bound": bound,
           "seconds_unsharded": ref["seconds"], "seconds": got["seconds"],
           "collectives": got["collectives"],
-          "collective_seconds": got["collective_seconds"],
           "stats": got["stats"], "kl_dist": got["kl_dist"]})
     return ref, got, counts
 
@@ -3135,8 +3128,6 @@ def phase_m11_two_ranks(hopper_ref):
               "update_rtol": M11_UPDATE_RTOL},
           "seconds": [r["hopper"]["seconds"] for r in ranks],
           "collectives": [r["hopper"]["collectives"] for r in ranks],
-          "collective_seconds": [r["hopper"]["collective_seconds"]
-                                 for r in ranks],
           "num_samples": [r["hopper"]["num_samples"] for r in ranks]})
     launches["m11_two_ranks_hopper"] = [
         r["hopper"]["kernel_launches"] for r in ranks]
@@ -3166,9 +3157,7 @@ def phase_m11_two_ranks(hopper_ref):
           "seconds": [r["swimmer_ppo"]["seconds"] for r in ranks],
           "t_opt": [r["swimmer_ppo"]["t_opt"] for r in ranks],
           "t_opt_one_rank": ppo_ref["t_opt"],
-          "collectives": [r["swimmer_ppo"]["collectives"] for r in ranks],
-          "collective_seconds": [r["swimmer_ppo"]["collective_seconds"]
-                                 for r in ranks]})
+          "collectives": [r["swimmer_ppo"]["collectives"] for r in ranks]})
     launches["m11_two_ranks_swimmer_ppo"] = [
         r["swimmer_ppo"]["kernel_launches"] for r in ranks]
     # the ensemble, float64
@@ -3211,16 +3200,11 @@ def phase_m11(kernel, contact):
           "hopper_collectives_per_iteration": {
               "world1_nccl": world1["collectives"],
               "two_ranks_gloo": per_rank("hopper", "collectives")},
-          "hopper_collective_seconds_per_iteration": {
-              "world1_nccl": world1["collective_seconds"],
-              "two_ranks_gloo": per_rank("hopper", "collective_seconds")},
           "swimmer_ppo_seconds_per_iteration": {
               "one_rank": ppo_ref["seconds"],
               "two_ranks_gloo": per_rank("swimmer_ppo", "seconds")},
           "swimmer_ppo_collectives_per_iteration":
               per_rank("swimmer_ppo", "collectives"),
-          "swimmer_ppo_collective_seconds_per_iteration":
-              per_rank("swimmer_ppo", "collective_seconds"),
           "two_rank_processes_seconds": pair_s})
     emit({"phase": "m11", "phase_seconds": phase_seconds,
           "seconds": sum(phase_seconds.values())})
@@ -3251,13 +3235,12 @@ def job_files(job):
 
 def timed_steps(agent, mesh, record):
     """Wrap agent.train_step: each call appends its seconds, its
-    collectives and their host seconds, its statistics, the parameters
-    after it and what the update moved."""
+    collectives, its statistics, the parameters after it and what the
+    update moved."""
     step = agent.train_step
 
     def timed(*args, **kwargs):
         c0 = 0 if mesh is None else mesh.collectives
-        s0 = 0.0 if mesh is None else mesh.collective_seconds
         params0 = agent.policy.get_param_values()
         torch.cuda.synchronize()
         t0 = time.time()
@@ -3271,9 +3254,7 @@ def timed_steps(agent, mesh, record):
             "params": params.tolist(),
             "update": {"alpha": log["alpha"], "kl_dist": log["kl_dist"],
                        **update_step(params, params0)},
-            "collectives": 0 if mesh is None else mesh.collectives - c0,
-            "collective_seconds": 0.0 if mesh is None
-            else mesh.collective_seconds - s0})
+            "collectives": 0 if mesh is None else mesh.collectives - c0})
         return stats
     agent.train_step = timed
 
@@ -3377,7 +3358,6 @@ def cards_scaling(mesh, repeats=2):
                     / r["seconds"],
                     "num_samples": r["num_samples"],
                     "collectives": r["collectives"],
-                    "collective_seconds": r["collective_seconds"],
                     "kernel_launches": counts})
             mesh.barrier()
     return out
@@ -3578,16 +3558,11 @@ def phase_m11_cards(kernel, contact, m11_refs):
           "collectives_per_iteration": [
               [it["collectives"] for it in r["hopper"]["whole"]
                ["iterations"]] for r in ranks],
-          "collective_seconds_per_iteration": [
-              [it["collective_seconds"] for it in r["hopper"]["whole"]
-               ["iterations"]] for r in ranks],
           "swimmer_ppo_seconds": [r["swimmer_ppo"]["seconds"]
                                   for r in ranks],
           "swimmer_ppo_seconds_one_rank": ppo_ref["seconds"],
           "swimmer_ppo_collectives": [r["swimmer_ppo"]["collectives"]
                                       for r in ranks],
-          "swimmer_ppo_collective_seconds": [
-              r["swimmer_ppo"]["collective_seconds"] for r in ranks],
           "busy": [r["busy"] for r in ranks],
           "rank_process_seconds": [r["seconds"] for r in ranks],
           "torchrun_seconds": ranks_s})

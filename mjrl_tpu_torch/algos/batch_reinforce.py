@@ -6,7 +6,9 @@
 (2) returns/GAE/whitening + the policy update,
 (3) baseline fit —
 each timed host-side (after a device synchronize) under the mjrl
-phase-timer log keys (time_sampling / time_vpg / time_VF).
+phase-timer log keys (time_sampling / time_vpg / time_VF).  Under a
+profiler the iteration and its phases are also spans (``train_step`` >
+``rollout``, ``gae``, ``update``, ``fit``; ``utils/profiling.py``).
 
 API parity: ``train_step(N, env, sample_mode, horizon, gamma, gae_lambda,
 num_cpu, env_kwargs) -> [mean, std, min, max, N]``;
@@ -45,6 +47,7 @@ from mjrl_tpu_torch.parallel.mesh import all_reduce_sum, gather_rows
 from mjrl_tpu_torch.samplers.rollout import (num_traj_for_samples,
                                              rollout_batch)
 from mjrl_tpu_torch.utils.logger import DataLog
+from mjrl_tpu_torch.utils.profiling import span, spanned
 
 
 def _sync(device):
@@ -130,6 +133,7 @@ class BatchREINFORCE:
                                  num_traj=num_traj, horizon=T,
                                  autoreset=autoreset, mesh=mesh)
 
+        @spanned("gae")
         @torch.no_grad()
         def process(bl_state, batch):
             rewards = batch["rewards"]
@@ -162,8 +166,8 @@ class BatchREINFORCE:
             path_returns = torch.sum(rewards * mask, dim=1)
             return returns, adv_flat, path_returns
 
-        fit_fn = torch.no_grad()(functools.partial(self.baseline.fit_state,
-                                                   mesh=mesh))
+        fit_fn = spanned("fit")(torch.no_grad()(functools.partial(
+            self.baseline.fit_state, mesh=mesh)))
 
         return rollout_fn, process, self._update_core, fit_fn
 
@@ -211,52 +215,53 @@ class BatchREINFORCE:
                    num_cpu="max",
                    env_kwargs=None,
                    ):
-        assert sample_mode in ("trajectories", "samples"), \
-            "sample_mode must be 'trajectories' or 'samples'"
-        fenv = self.fenv
-        T = fenv.horizon if horizon is None or horizon >= 1e6 \
-            else min(int(horizon), fenv.horizon)
-        num_traj = N if sample_mode == "trajectories" \
-            else num_traj_for_samples(N, T)
-        self._last_gamma_lambda = (gamma, gae_lambda)
+        with span("train_step", device=self.device):
+            assert sample_mode in ("trajectories", "samples"), \
+                "sample_mode must be 'trajectories' or 'samples'"
+            fenv = self.fenv
+            T = fenv.horizon if horizon is None or horizon >= 1e6 \
+                else min(int(horizon), fenv.horizon)
+            num_traj = N if sample_mode == "trajectories" \
+                else num_traj_for_samples(N, T)
+            self._last_gamma_lambda = (gamma, gae_lambda)
 
-        mesh = self.mesh
-        rollout_fn, process_fn, update_fn, fit_fn = self._get_phases(
-            num_traj, T, gamma, gae_lambda, mesh)
+            mesh = self.mesh
+            rollout_fn, process_fn, update_fn, fit_fn = self._get_phases(
+                num_traj, T, gamma, gae_lambda, mesh)
 
-        # phase 1: sampling
-        ts = timer.time()
-        batch = rollout_fn(self.policy.params, self.policy.transforms,
-                           self.generator)
-        _sync(self.device)
-        if self.save_logs:
-            self.logger.log_kv("time_sampling", timer.time() - ts)
+            # phase 1: sampling
+            ts = timer.time()
+            batch = rollout_fn(self.policy.params, self.policy.transforms,
+                               self.generator)
+            _sync(self.device)
+            if self.save_logs:
+                self.logger.log_kv("time_sampling", timer.time() - ts)
 
-        # phase 2: process + update
-        eval_statistics = self._train_from_batch(
-            batch, process_fn, update_fn, mesh)
-        eval_statistics.append(N)
-        if self.save_logs:
-            self.logger.log_kv("num_samples", int(all_reduce_sum(
-                batch["mask"].sum(), mesh)))
-            if "dones" in batch:     # episodes ended + truncated row tails
-                d = batch["dones"]
-                self.logger.log_kv("num_episodes", int(all_reduce_sum(
-                    d.sum() + (d[:, -1] == 0).sum(), mesh)))
+            # phase 2: process + update
+            eval_statistics = self._train_from_batch(
+                batch, process_fn, update_fn, mesh)
+            eval_statistics.append(N)
+            if self.save_logs:
+                self.logger.log_kv("num_samples", int(all_reduce_sum(
+                    batch["mask"].sum(), mesh)))
+                if "dones" in batch:     # episodes ended + truncated row tails
+                    d = batch["dones"]
+                    self.logger.log_kv("num_episodes", int(all_reduce_sum(
+                        d.sum() + (d[:, -1] == 0).sum(), mesh)))
 
-        # phase 3: baseline fit on fresh returns
-        ts = timer.time()
-        new_state, e0, e1 = fit_fn(self.baseline.state,
-                                   batch["observations"],
-                                   self._last_returns, batch["mask"])
-        self.baseline.state = new_state
-        _sync(self.device)
-        if self.save_logs:
-            self.logger.log_kv("time_VF", timer.time() - ts)
-            self.logger.log_kv("VF_error_before", float(e0))
-            self.logger.log_kv("VF_error_after", float(e1))
+            # phase 3: baseline fit on fresh returns
+            ts = timer.time()
+            new_state, e0, e1 = fit_fn(self.baseline.state,
+                                       batch["observations"],
+                                       self._last_returns, batch["mask"])
+            self.baseline.state = new_state
+            _sync(self.device)
+            if self.save_logs:
+                self.logger.log_kv("time_VF", timer.time() - ts)
+                self.logger.log_kv("VF_error_before", float(e0))
+                self.logger.log_kv("VF_error_after", float(e1))
 
-        return eval_statistics
+            return eval_statistics
 
     def _train_from_batch(self, batch, process_fn, update_fn, mesh=None):
         """Process and update on ``batch`` (under ``mesh``: this rank's
@@ -271,19 +276,20 @@ class BatchREINFORCE:
         act = batch["actions"].reshape(-1, batch["actions"].shape[-1])
         mask = batch["mask"].reshape(-1)
 
-        if self._has_opt_state:
-            new_params, stats, self.opt_state = update_fn(
-                self.policy.params, self.policy.transforms, obs, act,
-                adv_flat, mask, self.generator, self.opt_state, mesh=mesh)
-        else:
-            new_params, stats = update_fn(self.policy.params,
-                                          self.policy.transforms, obs, act,
-                                          adv_flat, mask, self.generator,
-                                          mesh=mesh)
-        # install new params (new and old copies, clamped)
-        self.policy.old_params = {k: v.detach().clone()
-                                  for k, v in new_params.items()}
-        self.policy.params = new_params
+        with span("update"):
+            if self._has_opt_state:
+                new_params, stats, self.opt_state = update_fn(
+                    self.policy.params, self.policy.transforms, obs, act,
+                    adv_flat, mask, self.generator, self.opt_state,
+                    mesh=mesh)
+            else:
+                new_params, stats = update_fn(
+                    self.policy.params, self.policy.transforms, obs, act,
+                    adv_flat, mask, self.generator, mesh=mesh)
+            # install new params (new and old copies, clamped)
+            self.policy.old_params = {k: v.detach().clone()
+                                      for k, v in new_params.items()}
+            self.policy.params = new_params
         _sync(self.device)
         t_update = timer.time() - ts
 

@@ -25,6 +25,7 @@ from mjrl_tpu_torch.ops.cg import cg_solve
 from mjrl_tpu_torch.ops.flat import tree_add_scaled, tree_dot
 from mjrl_tpu_torch.parallel.mesh import (all_reduce_sum, all_reduce_tree,
                                           local_index, row_offset)
+from mjrl_tpu_torch.utils.profiling import spanned
 
 
 def _sum_count(x, mask):
@@ -92,6 +93,7 @@ def _leaf_params(params):
     return {k: v.detach().requires_grad_(True) for k, v in params.items()}
 
 
+@spanned("vpg_grad")
 def vpg_grad(policy, params, params_old, transforms, obs, act, adv,
              mask=None, mesh=None):
     """Policy gradient of the surrogate, as a parameter dict (under a

@@ -18,6 +18,7 @@ import torch
 from mjrl_tpu_torch.algos import functional as F
 from mjrl_tpu_torch.algos.batch_reinforce import BatchREINFORCE
 from mjrl_tpu_torch.ops.gae import masked_moments
+from mjrl_tpu_torch.utils.profiling import span
 
 
 class NPG(BatchREINFORCE):
@@ -84,10 +85,11 @@ class NPG(BatchREINFORCE):
                     return F.mean_kl(pol, new, params, transforms, obs, mask,
                                      mesh)
 
-                kl, it = kl_at(alpha), 0
-                while bool(kl > kl_cap) and it < 10:
-                    alpha = 0.7 * alpha
-                    kl, it = kl_at(alpha), it + 1
+                with span("line_search"):
+                    kl, it = kl_at(alpha), 0
+                    while bool(kl > kl_cap) and it < 10:
+                        alpha = 0.7 * alpha
+                        kl, it = kl_at(alpha), it + 1
             new_params = F.apply_step(pol, params, npg, alpha)
             surr_after = F.cpi_surrogate(pol, new_params, params, transforms,
                                          obs, act, adv, mask, mesh)

@@ -17,20 +17,25 @@ import torch
 
 from mjrl_tpu_torch.ops.flat import (_map, tree_add_scaled, tree_dot,
                                      tree_zeros_like)
+from mjrl_tpu_torch.utils.profiling import span, spanned
 
 
+@spanned("cg")
 def cg_solve(f_Ax, b, x0=None, cg_iters=10, residual_tol=1e-10):
     """Solve A x = b where ``f_Ax`` maps a tree to a tree.
 
     Fixed ``cg_iters`` iterations; updates freeze once the squared residual
-    drops below ``residual_tol``.
+    drops below ``residual_tol``.  Each product is an ``fvp`` span: one per
+    iteration, and one for ``x0``.
     """
     if x0 is None:
         x = tree_zeros_like(b)
         r = b
     else:
         x = x0
-        r = _map(lambda bi, ax: bi - ax, b, f_Ax(x0))
+        with span("fvp"):
+            ax0 = f_Ax(x0)
+        r = _map(lambda bi, ax: bi - ax, b, ax0)
     p = r
     rdotr = tree_dot(r, r)
     zero = torch.zeros_like(rdotr)
@@ -38,7 +43,8 @@ def cg_solve(f_Ax, b, x0=None, cg_iters=10, residual_tol=1e-10):
     done = rdotr < residual_tol
 
     for _ in range(cg_iters):
-        z = f_Ax(p)
+        with span("fvp"):
+            z = f_Ax(p)
         pz = tree_dot(p, z)
         # Guard divide-by-zero once converged/degenerate.
         v = torch.where(done | (pz == 0.0), zero,

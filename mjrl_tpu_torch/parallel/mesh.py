@@ -26,13 +26,13 @@ The module functions take ``mesh=None`` for the unsharded path: then they
 reduce nothing.
 """
 
-import time
 from dataclasses import dataclass, fields, is_dataclass
 
 import torch
 import torch.distributed as dist
 
 from mjrl_tpu_torch.device import default_device
+from mjrl_tpu_torch.utils.profiling import span
 
 BATCH_AXIS = "batch"
 
@@ -40,8 +40,8 @@ BATCH_AXIS = "batch"
 class Mesh:
     """R ranks along one batch axis: the process group (None for one rank
     without a process group), this rank, R and this rank's device.
-    ``collectives`` / ``collective_seconds`` count the collectives issued
-    and the host time spent in them."""
+    ``collectives`` counts the collectives issued; under a profiler each
+    is a ``collective`` span, timed on the card."""
 
     def __init__(self, group, rank, size, device, axis_name=BATCH_AXIS):
         if group is None and int(size) != 1:
@@ -53,7 +53,6 @@ class Mesh:
         self.device = torch.device(device)
         self.axis_names = (axis_name,)
         self.collectives = 0
-        self.collective_seconds = 0.0
 
     def __repr__(self):
         return (f"Mesh(rank={self.rank}, size={self.size}, "
@@ -81,11 +80,10 @@ class Mesh:
         """Sum of ``x`` over the ranks (a new tensor; ``x`` is kept)."""
         if self.group is None:
             return x
-        t0 = time.perf_counter()
-        out = x.detach().clone().contiguous()
-        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=self.group)
+        with span("collective", device=self.device):
+            out = x.detach().clone().contiguous()
+            dist.all_reduce(out, op=dist.ReduceOp.SUM, group=self.group)
         self.collectives += 1
-        self.collective_seconds += time.perf_counter() - t0
         return out
 
     def barrier(self):

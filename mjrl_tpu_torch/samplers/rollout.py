@@ -41,6 +41,7 @@ import torch
 
 from mjrl_tpu_torch.device import make_generator
 from mjrl_tpu_torch.parallel.mesh import shard_rollout_keys
+from mjrl_tpu_torch.utils.profiling import span, spanned
 
 
 def _never_terminates(env):
@@ -63,6 +64,7 @@ def _select(alive, new, old):
     return new
 
 
+@spanned("rollout")
 @torch.no_grad()
 def rollout_batch(env, policy, params, transforms, generator, num_traj,
                   horizon=None, eval_mode=False, mesh=None,
@@ -122,38 +124,44 @@ def rollout_batch(env, policy, params, transforms, generator, num_traj,
             shard(resets[0][t]), shard(resets[1][t]))
 
     for t in range(T):
-        mean, log_std = policy.dist_info(params, transforms, s.obs)
-        if eval_mode:
-            action = mean
-        else:
-            # the whole batch's draw on every rank, then this rank's rows
-            eps = noise[t] if noise is not None else torch.randn(
-                (n_all, A), generator=generator, dtype=dt, device=dev)
-            eps = shard(eps).to(dt)
-            action = mean + torch.exp(log_std) * eps
-        ns = env.step(s, action)
-        observations[:, t] = s.obs
-        actions[:, t] = action
-        means[:, t] = mean
-        info = ns.info
-        if autoreset:
-            rewards[:, t] = ns.reward
-            if terminating:
-                # rows whose episode ended start afresh in the next step
-                dones[:, t] = ns.done.to(dt)
-                ns = _select(dones[:, t], fresh_state(t), ns)
-        elif terminating:
-            # freeze the env after termination: padded tail steps stay at
-            # the terminal state
-            ns = _select(alive, ns, s)
+        with span("control_step", timed=False):
+            with span("policy", timed=False):
+                mean, log_std = policy.dist_info(params, transforms, s.obs)
+                if eval_mode:
+                    action = mean
+                else:
+                    # the whole batch's draw on every rank, then this
+                    # rank's rows
+                    eps = noise[t] if noise is not None else torch.randn(
+                        (n_all, A), generator=generator, dtype=dt,
+                        device=dev)
+                    eps = shard(eps).to(dt)
+                    action = mean + torch.exp(log_std) * eps
+            with span("env_step", timed=False):
+                ns = env.step(s, action)
+            observations[:, t] = s.obs
+            actions[:, t] = action
+            means[:, t] = mean
             info = ns.info
-            rewards[:, t] = ns.reward * alive
-            mask[:, t] = alive
-            alive = alive * (1.0 - ns.done.to(dt))
-        else:
-            rewards[:, t] = ns.reward
-        infos.append(info)
-        s = ns
+            if autoreset:
+                rewards[:, t] = ns.reward
+                if terminating:
+                    # rows whose episode ended start afresh in the next step
+                    dones[:, t] = ns.done.to(dt)
+                    with span("reset"):
+                        ns = _select(dones[:, t], fresh_state(t), ns)
+            elif terminating:
+                # freeze the env after termination: padded tail steps stay
+                # at the terminal state
+                ns = _select(alive, ns, s)
+                info = ns.info
+                rewards[:, t] = ns.reward * alive
+                mask[:, t] = alive
+                alive = alive * (1.0 - ns.done.to(dt))
+            else:
+                rewards[:, t] = ns.reward
+            infos.append(info)
+            s = ns
 
     env_infos = {k: torch.stack([i[k] for i in infos], dim=1)
                  for k in (infos[0] if infos else {})}

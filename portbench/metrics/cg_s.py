@@ -1,0 +1,16 @@
+"""Seconds of the NPG update's conjugate-gradient solve in the profiled
+iteration: ``device_s`` of the program's ``cg`` span, its Fisher-vector
+products (one per CG iteration and one for ``x0``) included, from the
+program's span recorder (``mjrl_tpu_torch.utils.profiling``).  The
+profiled iteration runs under torch.profiler, so a stretch the host paces
+carries the profiler's own cost per operation; both sides of a comparison
+are profiled alike.  None where the program records no such span."""
+
+
+def read(ctx):
+    try:
+        from mjrl_tpu_torch.utils.profiling import last_step
+    except ImportError:
+        return None
+    row = (last_step() or {}).get("cg")
+    return row["device_s"] if row else None
