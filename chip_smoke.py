@@ -23,6 +23,13 @@ non-zero with the phase's name:
             so the wrapper's host cost (tens of microseconds, more than the
             smooth kernel takes) stays out; each kernel's host-paced time
             (a loop of calls from Python) is printed beside it.
+3b. fvp_kernel  K3, the NPG update's Fisher-vector product
+            (ops/cuda_fvp.py), built for the Swimmer's and Hopper's 32-32
+            policies and a 64-64 one in float32 and float64, ON THE CARD at
+            16 384 x 1000 rows against the float64 plain version (float32
+            within 1e-4 of the largest entry, float64 1e-10 at 10^6 rows),
+            with the plain version's and the double backward's gaps beside
+            it; its time (graph_ms), its bound and their times.
 4. rollout  SwimmerEnv, 4096 environments x 500 steps, 64-64 policy,
             stochastic: every leaf finite, one kernel launch per step.
 5. train    the Swimmer main path through the entry points a user calls:
@@ -39,7 +46,8 @@ non-zero with the phase's name:
             through examples/torch_policy_opt_job_script.py (MLP 32-32
             policy, MLPBaseline 128-128, 10 000 samples per iteration) with
             autoreset set in memory, 3 iterations: num_samples equal to the
-            10 x 1000 grid, KL within the guard, 3000 contact launches.
+            10 x 1000 grid, KL within the guard, 3000 contact launches and
+            11 K3 launches an iteration (CG's 10 iterations + 1).
 9. train_job_swimmer_ppo  swimmer_ppo.json the same way (PPO, MLPBaseline,
             10 x 500), 3 iterations: 1500 smooth launches.
 10. train_hopper_trpo     TRPO (kl_dist 0.01) with a QuadraticBaseline on
@@ -283,6 +291,7 @@ import torch
 
 from mjrl_tpu_torch import convert, native
 from mjrl_tpu_torch.algos import BC, NPG, TRPO
+from mjrl_tpu_torch.algos import functional as algos_functional
 from mjrl_tpu_torch.baselines import (LinearBaseline, MLPBaseline,
                                      QuadraticBaseline)
 from mjrl_tpu_torch.device import make_generator
@@ -296,8 +305,9 @@ from mjrl_tpu_torch.envs.peg_insertion import PegEnv
 from mjrl_tpu_torch.envs.point_mass import PointMassEnv
 from mjrl_tpu_torch.envs.reacher import Reacher7DOFEnv
 from mjrl_tpu_torch.envs.swimmer import SwimmerEnv
-from mjrl_tpu_torch.models.policies import MLP
-from mjrl_tpu_torch.ops import cuda_planar
+from mjrl_tpu_torch.models.fc_network import make_transforms
+from mjrl_tpu_torch.models.policies import MLP, GaussianMLP
+from mjrl_tpu_torch.ops import cuda_fvp, cuda_planar
 from mjrl_tpu_torch.physics import dynamics, planar, solver
 from mjrl_tpu_torch.physics.collision import contact_pair_condims
 from mjrl_tpu_torch.physics.kinematics import body_frames
@@ -831,6 +841,145 @@ def phase_kernels_contact(envs, smi, ptxas):
     }
 
 
+# ---- K3, the Fisher-vector product -------------------------------------------
+
+FVP_ROWS = 16384 * 1000          # both cells' rows an iteration
+FVP_CASES = (("swimmer", (12, 32, 32, 4)), ("hopper", (11, 32, 32, 3)),
+             ("swimmer_64_64", (12, 64, 64, 4)))
+# kernel against the float64 plain version, worst leaf's largest gap over
+# its largest entry: float32 sums of 16.4 M rows in another order (the
+# kernel's per-block sums of ~62 000 rows, cuBLAS's split-K in the plain
+# version); the double backward's own gap is printed beside it
+FVP_TOL = {torch.float32: 1e-4, torch.float64: 1e-10}
+
+
+def fvp_problem(sizes, n, dtype, seed):
+    """A policy of ``sizes`` (tanh) at random parameters, non-identity
+    transforms, ``n`` observations, a mask with ~10 % zeros and a direction
+    v, all drawn on the card from ``seed`` -> (policy, params, transforms,
+    obs, mask, v)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    rn = lambda *shape: torch.randn(shape, generator=g, device="cuda",
+                                    dtype=dtype)
+    pol = GaussianMLP(sizes[0], sizes[-1], sizes[1:-1], dtype=dtype,
+                      device="cuda")
+    params = {k: rn(*v.shape) / math.sqrt(v.shape[-1])
+              for k, v in pol.param_dict().items()}
+    params["log_std"] = -0.5 + 0.2 * rn(sizes[-1])
+    tr = make_transforms(sizes[0], sizes[-1], rn(sizes[0]),
+                         1.0 + rn(sizes[0]).abs(), rn(sizes[-1]),
+                         0.5 + rn(sizes[-1]).abs(), dtype=dtype,
+                         device="cuda")
+    obs = 2.0 * rn(n, sizes[0])
+    mask = (torch.rand(n, generator=g, device="cuda") > 0.1).to(dtype)
+    v = {k: rn(*x.shape) for k, x in params.items()}
+    return pol, params, tr, obs, mask, v
+
+
+def fvp_double_backward(pol, params, tr, obs, mask):
+    """The port's former product, the yardstick: the KL's first-order graph
+    over every row kept, each product a double backward -> v -> F v."""
+    F = algos_functional
+    p = F._leaf_params(params)
+    with torch.enable_grad():
+        kl = F._local_share(F._kl_terms(pol, p, F._detach(params), tr, obs),
+                            mask, None)
+        grad_kl = torch.autograd.grad(kl, list(p.values()), create_graph=True)
+
+    def hvp(v):
+        with torch.enable_grad():
+            gv = sum(torch.sum(gk * v[k]) for gk, k in zip(grad_kl, p))
+            return dict(zip(p, torch.autograd.grad(gv, list(p.values()),
+                                                   retain_graph=True)))
+    return hvp
+
+
+def fvp_gap(got, ref, keys):
+    """Worst leaf's largest gap over its largest entry (flat vectors in
+    ``keys``' order, split by the reference's leaves)."""
+    worst, i = 0.0, 0
+    for k, n in keys:
+        a, b = got[i:i + n].double(), ref[i:i + n].double()
+        worst = max(worst, float((a - b).abs().max() / b.abs().max()))
+        i += n
+    return worst
+
+
+def phase_fvp_kernel(smi):
+    """K3 against its plain version and the double backward ON THE CARD at
+    16 384 x 1000 rows, for the cells' 32-32 policies and a 64-64 one, with
+    its time (graph_ms), its bound and the others' times; float64 at 1e6
+    rows; one launch counted per product."""
+    t0 = time.time()
+    shapes = [cuda_fvp.FvpShape(sz, False) for _, sz in FVP_CASES]
+    from concurrent.futures import ThreadPoolExecutor
+    builds = [(sh, dt) for sh in shapes for dt in (torch.float32,
+                                                    torch.float64)]
+    with ThreadPoolExecutor(len(builds)) as pool:
+        infos = list(pool.map(lambda b: cuda_fvp.build_kernel(*b)[1],
+                              builds))
+    out = {"phase": "fvp_kernel", "rows": FVP_ROWS, "nvidia_smi": smi,
+           "build_seconds": time.time() - t0,
+           "ptxas": {f"{b[0].sizes}/{str(b[1])[6:]}":
+                     {**i["ptxas"], "rows": i["rows"],
+                      "smem_bytes": i["smem_bytes"]}
+                     for b, i in zip(builds, infos)}, "cases": {}}
+    for (name, sizes), shape in zip(FVP_CASES, shapes):
+        for dtype, n in ((torch.float32, FVP_ROWS), (torch.float64, 10 ** 6)):
+            pol, params, tr, obs, mask, v = fvp_problem(sizes, n, dtype, 17)
+            rows = mask.sum()
+            fv = cuda_fvp.FisherVectorProduct(params, "tanh", tr, obs, mask,
+                                              rows, rows)
+            if not fv.use_kernel:
+                raise AssertionError(f"fvp_kernel: {name} takes the plain "
+                                     "form on the card")
+            flat = torch.cat([v[k].reshape(-1) for k in fv.keys])
+            keys = [(k, params[k].numel()) for k in fv.keys]
+            before = cuda_fvp.launch_counts[cuda_fvp.KERNEL]
+            got = fv(flat)
+            torch.cuda.synchronize()
+            if cuda_fvp.launch_counts[cuda_fvp.KERNEL] != before + 1:
+                raise AssertionError("fvp_kernel: one launch a product")
+            args = (shape, fv.theta, flat, fv.in_shift, fv.in_scale, fv.coef,
+                    fv.cls, fv.obs, fv.mask)
+            plain = cuda_fvp.fvp_plain(*args)
+            ref = cuda_fvp.fvp_plain(*(a.double() if torch.is_tensor(a)
+                                       else a for a in args))
+            dbl = fvp_double_backward(pol, params, tr, obs, mask)
+            got_d = dbl(v)
+            got_d = torch.cat([got_d[k].reshape(-1) for k in fv.keys])
+            case = {"kernel_gap": fvp_gap(got, ref, keys),
+                    "plain_gap": fvp_gap(plain, ref, keys),
+                    "double_backward_gap": fvp_gap(got_d, ref, keys),
+                    "kernel_vs_plain": fvp_gap(got, plain, keys),
+                    "tol": FVP_TOL[dtype]}
+            if not case["kernel_gap"] <= FVP_TOL[dtype]:
+                raise AssertionError(f"fvp_kernel {name} {dtype}: {case}")
+            if not torch.isfinite(got).all():
+                raise AssertionError(f"fvp_kernel {name}: not finite")
+            del ref
+            if dtype == torch.float32:
+                mac = sum(a * b for a, b in zip(sizes[:-1], sizes[1:]))
+                flops = 3 * 2 * mac * n       # portbench/counts.py's count
+                nbytes = n * (sizes[0] + 1) * 4
+                case.update(
+                    kernel_graph_ms=graph_ms(lambda: fv(flat), 5),
+                    kernel_ms=time_ms(lambda: fv(flat), 5),
+                    plain_ms=time_ms(lambda: cuda_fvp.fvp_plain(*args), 3),
+                    double_backward_ms=time_ms(lambda: dbl(v), 3),
+                    bound_ms=max(flops / 67e12, nbytes / 3.35e12) * 1e3,
+                    bound_by="operations" if flops / 67e12 > nbytes / 3.35e12
+                    else "bytes")
+                case["roofline_pct"] = (100 * case["bound_ms"]
+                                        / case["kernel_graph_ms"])
+            out["cases"][f"{name}/{str(dtype)[6:]}"] = case
+            del pol, params, tr, obs, mask, v, fv, dbl, plain, got, got_d
+            torch.cuda.empty_cache()
+    out["seconds"] = time.time() - t0
+    emit(out)
+    return out
+
+
 def phase_rollout(kernel_ms):
     env = SwimmerEnv()
     assert env.device.type == "cuda"
@@ -1038,9 +1187,16 @@ def phase_train_job(config, kernel, horizon, phase, overrides):
 
 
 def phase_train_job_hopper_npg():
+    cuda_fvp.reset_launch_counts()
     agent, counts, seconds, vf_steps = phase_train_job(
         "hopper_npg.json", CONTACT, HOPPER_HORIZON, "train_job_hopper_npg",
         ['alg_hyper_params={"autoreset": True}'])
+    fvp_launches = cuda_fvp.launch_counts[cuda_fvp.KERNEL]
+    want = NITER * (agent.FIM_invert_args.get("iters", 10) + 1)
+    if fvp_launches != want:
+        raise AssertionError(f"train_job_hopper_npg: {fvp_launches} "
+                             f"Fisher-vector launches, expected {want} (CG "
+                             "iterations + 1 an iteration)")
     log = agent.logger.log
     grid = math.ceil(10000 / HOPPER_HORIZON) * HOPPER_HORIZON
     if not agent.autoreset or log["num_samples"] != [grid] * NITER:
@@ -1053,6 +1209,7 @@ def phase_train_job_hopper_npg():
           "autoreset": True, "iterations": NITER, "seconds": seconds,
           "kernel_launches": counts, "num_samples": log["num_samples"],
           "num_episodes": log["num_episodes"],
+          "fvp_launches": fvp_launches,
           "time_sampling": log["time_sampling"], "time_npg": log["time_npg"],
           "time_VF": log["time_VF"], "vf_adam_steps": vf_steps,
           "vf_us_per_adam_step": [t / vf_steps * 1e6
@@ -3703,6 +3860,8 @@ def main():
         kernel = phase_kernels(p, smi, ptxas["swimmer"])
         contact = phase_kernels_contact(
             contact_envs, smi, {k: ptxas[k] for k in contact_envs})
+        phase = "fvp_kernel"
+        phase_fvp_kernel(smi)
         phase = "rollout"
         phase_rollout(kernel["ms"])
         phase = "train"

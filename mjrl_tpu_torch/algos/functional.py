@@ -4,8 +4,8 @@
 - CPI surrogate: mean(likelihood_ratio * advantage) over valid steps.
 - VPG gradient: autograd of the surrogate on the parameter dict.
 - Fisher-vector products: the Hessian-vector product of the mean KL at the
-  current parameters (+ damping) by double backward; the first-order graph
-  is built once and reused by every CG iteration.
+  current parameters (+ damping), in the Gaussian's closed form: one
+  hand-written kernel a product on the card (``ops/cuda_fvp.py``).
 - NPG direction: CG on parameter dicts; step size
   alpha = sqrt(|delta / g.F^-1 g|).
 - Optional HVP subsampling via a random subset of rows.
@@ -22,6 +22,7 @@ import torch
 
 from mjrl_tpu_torch import distributions as dist
 from mjrl_tpu_torch.ops.cg import cg_solve
+from mjrl_tpu_torch.ops.cuda_fvp import FisherVectorProduct
 from mjrl_tpu_torch.ops.flat import tree_add_scaled, tree_dot
 from mjrl_tpu_torch.parallel.mesh import (all_reduce_sum, all_reduce_tree,
                                           local_index, row_offset)
@@ -113,7 +114,10 @@ def make_hvp(policy, params, transforms, obs, mask=None, damping=1e-4,
     """Fisher-vector product at ``params``: F v + damping v.
 
     F is the Hessian of KL(old || new) in the new params at new = old =
-    params.  With ``hvp_sample_frac`` < 1, a random subset of rows is used:
+    params, in its closed form for the Gaussian policy
+    (``ops/cuda_fvp.py``): the hand-written kernel for CUDA tensors of a
+    shape it takes, the plain closed form otherwise; no autograd graph is
+    kept.  With ``hvp_sample_frac`` < 1, a random subset of rows is used:
     a permutation of all rows (of every rank's, under a ``mesh``), of which
     each rank keeps the rows it holds.  Under a ``mesh`` each product is
     all-reduced: one collective per CG iteration.
@@ -128,20 +132,24 @@ def make_hvp(policy, params, transforms, obs, mask=None, damping=1e-4,
         mask = own if mask is None else mask[idx] * own
         obs = obs[idx]
 
-    with torch.enable_grad():
-        p = _leaf_params(params)
-        kl = _local_share(_kl_terms(policy, p, _detach(params), transforms,
-                                    obs), mask, mesh)
-        leaves = list(p.values())
-        grad_kl = torch.autograd.grad(kl, leaves, create_graph=True)
+    with torch.no_grad():
+        rows = torch.full((), obs.shape[0], dtype=obs.dtype,
+                          device=obs.device) if mask is None \
+            else torch.sum(mask).to(obs.dtype)
+        count = torch.clamp(all_reduce_sum(rows, mesh), min=1.0)
+        fvp = FisherVectorProduct(params, policy.nonlinearity, transforms,
+                                  obs, mask, rows, count)
+    offsets, i = {}, 0
+    for k in fvp.keys:
+        offsets[k] = i
+        i += params[k].numel()
 
     def hvp(v):
-        with torch.enable_grad():
-            gv = sum(torch.sum(g * v[k].detach())
-                     for g, k in zip(grad_kl, p))
-            hv = torch.autograd.grad(gv, leaves, retain_graph=True)
-        return tree_add_scaled(all_reduce_tree(dict(zip(p, hv)), mesh), v,
-                               damping)
+        with torch.no_grad():
+            flat = torch.cat([v[k].detach().reshape(-1) for k in fvp.keys])
+            hv = all_reduce_sum(fvp(flat), mesh) + damping * flat
+        return {k: hv[offsets[k]:offsets[k] + p.numel()].view(p.shape)
+                for k, p in params.items()}
 
     return hvp
 

@@ -382,9 +382,9 @@ def _build_dir_for(header: str, sources) -> str:
     return os.path.join(BUILD_DIR, h.hexdigest()[:16])
 
 
-def _write_header(bdir, header):
+def _write_header(bdir, header, name="planar_model.cuh"):
     os.makedirs(bdir, exist_ok=True)
-    path = os.path.join(bdir, "planar_model.cuh")
+    path = os.path.join(bdir, name)
     if not os.path.exists(path):
         fd, tmp = tempfile.mkstemp(dir=bdir, suffix=".cuh")
         with os.fdopen(fd, "w") as f:
