@@ -55,10 +55,11 @@ def readings(cell, seed, device, with_faults, mesh=None, ranks=npg.ONE,
     del agent
     if device == "cuda":
         torch.cuda.empty_cache()
-    _, p = load_config(cell.config_name)
+    _, p, engine = load_config(cell.config_name)
     cfg = cell.cfg
     out = {}
-    numbers, ref, _ = check.program_numbers(prog, cfg, p, dev, seed, ranks)
+    numbers, ref, _ = check.program_numbers(prog, cfg, engine, p, dev, seed,
+                                            ranks)
     out["program"] = dict(numbers, backtracks=prog["backtracks"])
     if not (with_faults or witness):
         return out
@@ -81,7 +82,7 @@ def readings(cell, seed, device, with_faults, mesh=None, ranks=npg.ONE,
     f32 = chain_numbers(check.follow(steps, theta1, beta1, cfg,
                                      npg.Arith(float32=True), dev,
                                      ranks=ranks))
-    f32.update(check.physics_numbers(steps, cfg, env, p, rows, dev,
+    f32.update(check.physics_numbers(steps, cfg, env, engine, p, rows, dev,
                                      dtype=torch.float32, ranks=ranks)[0])
     out["float32"] = f32
     if not with_faults:
@@ -106,7 +107,7 @@ def readings(cell, seed, device, with_faults, mesh=None, ranks=npg.ONE,
         o[:, -1] += 0.01
         return o
     out["altered_state"] = check.physics_numbers(
-        steps, cfg, env, p, rows, dev, alter=alter, ranks=ranks)[0]
+        steps, cfg, env, engine, p, rows, dev, alter=alter, ranks=ranks)[0]
     noisy = []
     for st in steps:
         b = dict(st["batch"])

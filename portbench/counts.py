@@ -1,23 +1,23 @@
-"""Frozen yardsticks: the published peaks, the operation counters of the
-two planar kernels, and the counting rule of an NPG iteration's work.
+"""Frozen yardsticks: the published peaks, the counting rule of an NPG
+iteration's work, and the loading of a configuration with its engine.
 
-The counters are copies of the ones the port's smoke script used when the
-benchmark was defined, run on the frozen plain step
-(``reference/planar_plain.py``), so that nothing the program later changes
-can move a roofline or the iteration's counted work.  The numbers they give
-are written into each configuration's file under ``counts`` (a test
-recomputes them):
+Nothing here names a physics engine.  A configuration
+(``configs/<config>.json``) names its engine under ``engine``; the engine's
+module, ``reference/<engine>_plain.py``, holds its frozen plain step, its
+frozen model parameters' loader (``configs/<config>.<engine>.json``) and
+the operations and bytes its kernel is counted by, so that nothing the
+program later changes can move a roofline or the iteration's counted work.
+The numbers are written into each configuration's file under ``counts`` (a
+test recomputes them):
 
     python -m portbench.counts            # prints the counts of every config
 """
 
+import importlib.util
 import json
 import os
 
-import torch
 from torch.utils._python_dispatch import TorchDispatchMode
-
-from portbench.reference import planar_plain as planar
 
 # published peaks of one H100 SXM (NVIDIA data sheet): float32 outside the
 # tensor cores, and HBM3 bandwidth
@@ -28,8 +28,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 
 
 class _OpCounter(TorchDispatchMode):
-    """Counts the elementwise tensor operations the plain version issues:
-    on (1,)-shaped components each is one scalar operation per
+    """Counts the elementwise tensor operations a plain step issues: on
+    (1,)-shaped components each is one scalar operation per
     environment."""
     SKIP = ("zeros_like", "ones_like", "select", "stack", "cat", "_to_copy",
             "unsqueeze", "view", "detach", "alias", "empty", "lift_fresh")
@@ -45,109 +45,12 @@ class _OpCounter(TorchDispatchMode):
         return func(*args, **(kwargs or {}))
 
 
-def count_plain_ops(p, n):
-    """Scalar operations per environment of one control step (n substeps),
-    counted by running the plain version on one environment."""
-    nu = len(p.actuators)
-    q = torch.full((1, p.nv), 0.1, dtype=torch.float64)
-    u = torch.full((1, nu), 0.1, dtype=torch.float64)
-    with _OpCounter() as c:
-        planar.step_n_arrays(p, q, q.clone(), u, n)
-    return sum(c.counts.values())
-
-
-def count_component_ops(fn):
+def count_ops(fn):
     """Scalar operations of ``fn`` run in component form on one
-    environment."""
+    environment (the rule an engine's counters count by)."""
     with _OpCounter() as c:
         fn()
     return sum(c.counts.values())
-
-
-def solve_ops(nv, first=0, last=0):
-    """Scalar operations of one solve with a Cholesky factor, in component
-    form, whose right-hand side is an exact zero above row ``first`` and of
-    whose result only rows >= ``last`` are read."""
-    one = torch.ones(1, dtype=torch.float64)
-
-    def solve():
-        y, out = {}, {}
-        for i in range(first, nv):
-            s = one
-            for k in range(first, i):
-                s = s - one * y[k]
-            y[i] = s / one
-        for i in reversed(range(last, nv)):
-            s = y.get(i, one)
-            for k in range(i + 1, nv):
-                s = s - one * out[k]
-            out[i] = s / one
-    return count_component_ops(solve)
-
-
-def count_kernel_ops(p, n):
-    """Scalar operations per environment of one control step of K1's
-    algorithm at one lane per environment: the plain version's count less
-    the products with exact zeros the kernel leaves out, plus the
-    reciprocals it takes (the port's smoke script's rule, frozen)."""
-    plain = count_plain_ops(p, n)
-    nv = p.nv
-    lim = [d for d in range(nv) if p.limited[d]]
-    factorizations = 2 if any(p.damping) else 1
-    per_substep = 2 * int(sum(map(sum, planar.chain_mask(p)))) \
-        - factorizations * nv
-    if lim:
-        full = solve_ops(nv)
-        per_substep += (full - solve_ops(nv, 0, lim[0])
-                        + sum(full - solve_ops(nv, d, lim[0]) for d in lim)
-                        + 5 * len(lim) + (planar.PGS_SWEEPS - 1) * len(lim)
-                        - len(lim))
-    return plain - n * per_substep
-
-
-def count_contact_ops(p, n):
-    """Scalar operations per environment of one control step of K2: smooth
-    dynamics and row assembly counted from the component form on one
-    environment, the dual solve from its formula (C rows, nv dofs, s
-    sweeps, P power iterations per acceleration evaluation; RK4 takes 4 n
-    evaluations, the first cold of SWEEPS, the rest warm of
-    SWEEPS_WARM)."""
-    nv, nu, C = p.nv, len(p.actuators), planar.n_planar_rows(p)
-    q = [torch.full((1,), 0.1, dtype=torch.float64) for _ in range(nv)]
-    u = [torch.full((1,), 0.1, dtype=torch.float64) for _ in range(nu)]
-    ctx = planar._planar_ctx(p, q)
-    smooth = count_component_ops(lambda: planar._planar_smooth(p, q, q, u))
-    rows = count_component_ops(
-        lambda: planar._constraint_rows_comp(p, ctx, q, q))
-    chol = nv ** 3 // 3 + nv ** 2
-    solve = 2 * nv ** 2 + 2 * nv
-
-    def evaluation(sweeps):
-        return (smooth + rows + chol + (C + 1) * solve + C * (8 * nv + 7)
-                + (planar.POWER_ITERS + sweeps) * (4 * C * nv + 3 * C)
-                + 3 * C * planar.POWER_ITERS + 12 * C * sweeps)
-    evals = n if p.integrator == planar.EULER else 4 * n
-    total = evaluation(planar.SWEEPS) + (evals - 1) * evaluation(
-        planar.SWEEPS_WARM)
-    if p.integrator == planar.EULER:
-        total += n * (chol + solve + 2 * nv * nv + 6 * nv)
-    else:
-        total += evals * 6 * nv
-    return total
-
-
-def physics_ops(p, n):
-    """Operations per environment and control step of the kernel that
-    steps ``p``."""
-    if planar.needs_contact_path(p):
-        return count_contact_ops(p, n)
-    return count_kernel_ops(p, n)
-
-
-def kernel_bytes(p):
-    """Bytes per environment of one launch: qpos, qvel and ctrl read once,
-    q and v written once, in float32."""
-    return (4 * p.nv + len(p.actuators)) * 4
 
 
 def mlp_flops(sizes):
@@ -177,23 +80,24 @@ def baseline_flops(n_features):
         + 4 * n_features
 
 
-def iteration_counts(cfg, p):
+def iteration_counts(cfg, p, engine):
     """The counted work of one NPG iteration, per sample, for a
-    configuration ``cfg`` (its JSON) and its frozen planar parameters."""
+    configuration ``cfg`` (its JSON) and its engine's module and frozen
+    parameters."""
     sizes = [cfg["obs_dim"]] + list(cfg["policy_size"]) + [cfg["act_dim"]]
     n_features = cfg["obs_dim"] + 1 + 4
-    phys = physics_ops(p, cfg["frame_skip"])
+    phys = engine.physics_ops(p, cfg["frame_skip"])
     pol = mlp_flops(sizes) * policy_passes(cfg["FIM_invert_args"]["iters"])
     base = baseline_flops(n_features)
     return {"physics_ops_per_sample": phys,
             "policy_flops_per_sample": pol,
             "baseline_flops_per_sample": base,
             "flops_per_sample": phys + pol + base,
-            "kernel_bytes_per_env": kernel_bytes(p)}
+            "kernel_bytes_per_env": engine.kernel_bytes(p)}
 
 
 def roofline_share(ctx, kernel_symbol):
-    """A planar kernel's share of its roofline in the profiled iteration,
+    """A physics kernel's share of its roofline in the profiled iteration,
     in %: the least time the card could take for one launch on the cell's
     rows (the larger of the counted operations over the float32 peak and
     the counted bytes over the bandwidth) over the launch's mean device
@@ -207,27 +111,44 @@ def roofline_share(ctx, kernel_symbol):
     return 100.0 * least / (sum(times) / len(times))
 
 
-def config_path(name):
-    return os.path.join(HERE, "configs", name + ".json")
+def load_module(path, name):
+    """The Python file ``path`` as a module of its own named ``name``."""
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def load_config(name):
-    with open(config_path(name)) as f:
+    """-> (the configuration ``configs/<name>.json``, its frozen model
+    parameters ``configs/<name>.<engine>.json``, the engine's module
+    ``reference/<engine>_plain.py``)."""
+    with open(os.path.join(HERE, "configs", name + ".json")) as f:
         cfg = json.load(f)
-    p = planar.load_params(os.path.join(HERE, "configs",
-                                        name + ".planar.json"))
-    return cfg, p
+    engine = load_module(
+        os.path.join(HERE, "reference", cfg["engine"] + "_plain.py"),
+        "portbench_engine_" + cfg["engine"])
+    p = engine.load_params(os.path.join(
+        HERE, "configs", f"{name}.{cfg['engine']}.json"))
+    return cfg, p, engine
+
+
+def config_names():
+    """Every configuration in ``configs/``: a file that names an engine."""
+    names = []
+    for fn in sorted(os.listdir(os.path.join(HERE, "configs"))):
+        with open(os.path.join(HERE, "configs", fn)) as f:
+            if "engine" in json.load(f):
+                names.append(fn[:-len(".json")])
+    return names
 
 
 def main():
-    for fn in sorted(os.listdir(os.path.join(HERE, "configs"))):
-        if fn.endswith(".json") and not fn.endswith(".planar.json"):
-            name = fn[:-5]
-            cfg, p = load_config(name)
-            print(json.dumps({"config": name,
-                              "counts": iteration_counts(cfg, p)}))
+    for name in config_names():
+        cfg, p, engine = load_config(name)
+        print(json.dumps({"config": name,
+                          "counts": iteration_counts(cfg, p, engine)}))
 
 
 if __name__ == "__main__":
     main()
-

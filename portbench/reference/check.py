@@ -9,8 +9,9 @@ steps is chaotic), so the reference follows the program from the program's
 own batches, and checks the rollout that this skips one control step at a
 time:
 
-- ``phys_gap``: sampled rows, every transition: the frozen plain step in
-  float64 from the observed state and the taken action, against the next
+- ``phys_gap``: sampled rows, every transition: the frozen plain step of
+  the configuration's engine (``reference/<engine>_plain.py``) in float64
+  from the observed state and the taken action, against the next
   observation and the reward the program produced (relative to 1 + |x|),
   the 99.9th percentile over the transitions (the largest gap is a float32
   branch flip of the dual solve's active set, rare and as large as a
@@ -41,12 +42,12 @@ Leaves whose reference gradient is under a thousandth of the median
 leaf's are left out of the last three.
 """
 
-import importlib.util
 import os
 
 import torch
 
-from portbench.reference import npg, planar_plain
+from portbench.counts import load_module
+from portbench.reference import npg
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PHYS_BLOCK = 1 << 16
@@ -58,12 +59,8 @@ COMPARED = ("phys_gap", "phys_miss", "policy_gap", "action_z", "surr_gap",
 
 def load_env(name):
     """The task semantics module ``envs/<name>.py``."""
-    path = os.path.join(HERE, "envs", name + ".py")
-    spec = importlib.util.spec_from_file_location("portbench_env_" + name,
-                                                  path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
+    return load_module(os.path.join(HERE, "envs", name + ".py"),
+                       "portbench_env_" + name)
 
 
 def follow(steps, theta1, beta1, cfg, ar, device, rows=None,
@@ -145,14 +142,15 @@ def check_rows(n_rows, k, seed):
     return torch.randperm(n_rows, generator=gen)[:min(k, n_rows)]
 
 
-def physics_numbers(steps, cfg, env, p, rows, device, dtype=torch.float64,
-                    alter=None, ranks=npg.ONE):
-    """phys_gap and phys_miss over every transition of ``rows`` (under
+def physics_numbers(steps, cfg, env, engine, p, rows, device,
+                    dtype=torch.float64, alter=None, ranks=npg.ONE):
+    """phys_gap and phys_miss over every transition of ``rows``, stepped by
+    the ``engine`` module's plain step on its parameters ``p`` (under
     ``ranks``: the largest of the ranks' gaps, the sum of their misses).
     ``alter(next_obs) -> next_obs`` plants an altered answer (for the
     readings of a fault)."""
     n_sub = cfg["frame_skip"]
-    dt = p.timestep * n_sub
+    dt = engine.control_dt(p, n_sub)
     gaps, miss, checked = [], 0, 0
     for st in steps:
         b = st["batch"]
@@ -168,7 +166,7 @@ def physics_numbers(steps, cfg, env, p, rows, device, dtype=torch.float64,
         for lo in range(0, o0.shape[0], PHYS_BLOCK):
             s = slice(lo, lo + PHYS_BLOCK)
             qpos, qvel, valid = env.state_from_obs(o0[s])
-            q1, v1 = planar_plain.step_n_arrays(p, qpos, qvel, a[s], n_sub)
+            q1, v1 = engine.step_n_arrays(p, qpos, qvel, a[s], n_sub)
             end_ref, clear = env.ended(q1, v1)
             r_ref = env.reward(qpos, q1, a[s], dt)
             o1_ref = env.observe(q1, v1)
@@ -233,10 +231,11 @@ def policy_numbers(steps, rows, device, ar=None, ranks=npg.ONE):
     return dict(policy_gap=gap, action_z=z_dev)
 
 
-def program_numbers(run, cfg, p, device, seed, ranks=npg.ONE):
+def program_numbers(run, cfg, engine, p, device, seed, ranks=npg.ONE):
     """Every compared number of the program's checked iterations ``run``
     (``steps``, ``theta1``, ``beta1``, ``thetas``, ``betas``, ``surrs``;
-    under ``ranks``, this rank's rows) against the float64 reference ->
+    under ``ranks``, this rank's rows) against the float64 reference, its
+    transitions stepped by the configuration's ``engine`` on ``p`` ->
     (numbers, the reference chain, transitions checked)."""
     env = load_env(cfg["reference_env"])
     steps = run["steps"]
@@ -248,7 +247,7 @@ def program_numbers(run, cfg, p, device, seed, ranks=npg.ONE):
                          run["surrs"], ref, steps, run["theta1"], device,
                          ranks)
     out.update(policy_numbers(steps, rows, device, ranks=ranks))
-    phys, checked = physics_numbers(steps, cfg, env, p, rows, device,
-                                    ranks=ranks)
+    phys, checked = physics_numbers(steps, cfg, env, engine, p, rows,
+                                    device, ranks=ranks)
     out.update(phys)
     return out, ref, checked

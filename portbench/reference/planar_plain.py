@@ -1,12 +1,21 @@
-"""The plain planar step, frozen for the benchmark.
+"""The planar engine of the benchmark: its plain step, frozen, and its
+counts.
 
 A copy of the port's plain PyTorch planar step (the smooth Euler branch of
 K1 and the contact / RK4 branch of K2), taken when the benchmark was
 defined, so that later changes to the program cannot move the yardstick:
-the operation counters (``portbench/counts.py``) run on it, and the
-reference of ``correct`` steps sampled transitions with it in float64.
-It imports nothing of the program.  Its model parameters are the frozen
-``PlanarParams`` of each configuration, ``configs/<config>.planar.json``.
+the reference of ``correct`` steps sampled transitions with it in float64,
+and the operation counters at the end of this file run on it.  It imports
+nothing of the program.  Its model parameters are the frozen
+``PlanarParams`` of each configuration whose ``engine`` is ``planar``,
+``configs/<config>.planar.json``.
+
+A configuration names its engine; the harness loads
+``reference/<engine>_plain.py`` by its file name and calls only these
+names of it: ``load_params``, ``step_n_arrays``, ``control_dt``,
+``sizes``, ``physics_ops``, ``kernel_bytes``, and for the test that holds
+the frozen step against the port, ``PORT_STEP``, ``port_params`` and
+``port_step`` (the last section of this file, but for the first two).
 
     q2, v2 = step_n_arrays(params, qpos, qvel, ctrl, n)
 """
@@ -16,6 +25,8 @@ from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
+
+from portbench.counts import count_ops
 
 # the model's integrator and cone codes
 EULER = 0
@@ -901,3 +912,130 @@ def step_n_arrays(p: PlanarParams, qpos, qvel, ctrl, n: int):
     u = [ctrl[..., i] for i in range(len(p.actuators))]
     q2, v2 = planar_step_n(p, q, v, u, n)
     return torch.stack(q2, dim=-1), torch.stack(v2, dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# the engine's interface to the harness: sizes, the control step's length,
+# the counted work of K1 and K2, and the port's counterpart for the test
+# ---------------------------------------------------------------------------
+
+# The port's counterpart of ``step_n_arrays``, named by a dotted path so
+# that this module imports nothing of the program: the test that holds the
+# frozen step against the port imports it and calls it through
+# ``port_step``.
+PORT_STEP = "mjrl_tpu_torch.physics.planar.step_n_arrays"
+
+
+def port_params(env):
+    """The port env's own model parameters, in ``load_params``' form."""
+    return env._planar
+
+
+def port_step(fn, env, qpos, qvel, ctrl, n):
+    """One control step of the port's ``fn`` (``PORT_STEP``, imported by
+    the caller) on the port env's own parameters."""
+    return fn(port_params(env), qpos, qvel, ctrl, n)
+
+
+def sizes(p: PlanarParams):
+    """(nq, nv, nu): a planar tree's qpos and qvel have one entry per
+    dof."""
+    return p.nv, p.nv, len(p.actuators)
+
+
+def control_dt(p: PlanarParams, n: int):
+    """Seconds of one control step of ``n`` substeps."""
+    return p.timestep * n
+
+
+def count_plain_ops(p, n):
+    """Scalar operations per environment of one control step (n substeps),
+    counted by running the plain version on one environment."""
+    nu = len(p.actuators)
+    q = torch.full((1, p.nv), 0.1, dtype=torch.float64)
+    u = torch.full((1, nu), 0.1, dtype=torch.float64)
+    return count_ops(lambda: step_n_arrays(p, q, q.clone(), u, n))
+
+
+def solve_ops(nv, first=0, last=0):
+    """Scalar operations of one solve with a Cholesky factor, in component
+    form, whose right-hand side is an exact zero above row ``first`` and of
+    whose result only rows >= ``last`` are read."""
+    one = torch.ones(1, dtype=torch.float64)
+
+    def solve():
+        y, out = {}, {}
+        for i in range(first, nv):
+            s = one
+            for k in range(first, i):
+                s = s - one * y[k]
+            y[i] = s / one
+        for i in reversed(range(last, nv)):
+            s = y.get(i, one)
+            for k in range(i + 1, nv):
+                s = s - one * out[k]
+            out[i] = s / one
+    return count_ops(solve)
+
+
+def count_kernel_ops(p, n):
+    """Scalar operations per environment of one control step of K1's
+    algorithm at one lane per environment: the plain version's count less
+    the products with exact zeros the kernel leaves out, plus the
+    reciprocals it takes (the port's smoke script's rule, frozen)."""
+    plain = count_plain_ops(p, n)
+    nv = p.nv
+    lim = [d for d in range(nv) if p.limited[d]]
+    factorizations = 2 if any(p.damping) else 1
+    per_substep = 2 * int(sum(map(sum, chain_mask(p)))) \
+        - factorizations * nv
+    if lim:
+        full = solve_ops(nv)
+        per_substep += (full - solve_ops(nv, 0, lim[0])
+                        + sum(full - solve_ops(nv, d, lim[0]) for d in lim)
+                        + 5 * len(lim) + (PGS_SWEEPS - 1) * len(lim)
+                        - len(lim))
+    return plain - n * per_substep
+
+
+def count_contact_ops(p, n):
+    """Scalar operations per environment of one control step of K2: smooth
+    dynamics and row assembly counted from the component form on one
+    environment, the dual solve from its formula (C rows, nv dofs, s
+    sweeps, P power iterations per acceleration evaluation; RK4 takes 4 n
+    evaluations, the first cold of SWEEPS, the rest warm of
+    SWEEPS_WARM)."""
+    nv, nu, C = p.nv, len(p.actuators), n_planar_rows(p)
+    q = [torch.full((1,), 0.1, dtype=torch.float64) for _ in range(nv)]
+    u = [torch.full((1,), 0.1, dtype=torch.float64) for _ in range(nu)]
+    ctx = _planar_ctx(p, q)
+    smooth = count_ops(lambda: _planar_smooth(p, q, q, u))
+    rows = count_ops(lambda: _constraint_rows_comp(p, ctx, q, q))
+    chol = nv ** 3 // 3 + nv ** 2
+    solve = 2 * nv ** 2 + 2 * nv
+
+    def evaluation(sweeps):
+        return (smooth + rows + chol + (C + 1) * solve + C * (8 * nv + 7)
+                + (POWER_ITERS + sweeps) * (4 * C * nv + 3 * C)
+                + 3 * C * POWER_ITERS + 12 * C * sweeps)
+    evals = n if p.integrator == EULER else 4 * n
+    total = evaluation(SWEEPS) + (evals - 1) * evaluation(SWEEPS_WARM)
+    if p.integrator == EULER:
+        total += n * (chol + solve + 2 * nv * nv + 6 * nv)
+    else:
+        total += evals * 6 * nv
+    return total
+
+
+def physics_ops(p, n):
+    """Operations per environment and control step of the kernel that
+    steps ``p``: K2 where the model has contacts or RK4, else K1."""
+    if needs_contact_path(p):
+        return count_contact_ops(p, n)
+    return count_kernel_ops(p, n)
+
+
+def kernel_bytes(p):
+    """Bytes per environment of one launch: qpos, qvel and ctrl read once,
+    q and v written once, in float32."""
+    return (4 * p.nv + len(p.actuators)) * 4

@@ -4,12 +4,15 @@
         --trace <0|1>
 
 run from the root of a checkout that holds ``BENCHMARK.json``.  The cell
-``<name>`` names a configuration (``portbench/configs/<config>.json``, with
-its frozen planar model ``<config>.planar.json`` and its task semantics
+``<name>`` names a configuration (``portbench/configs/<config>.json``,
+which names its physics engine ``<engine>``: the engine's frozen plain
+step and counts ``portbench/reference/<engine>_plain.py``, the frozen
+model ``<config>.<engine>.json``, and the task semantics
 ``portbench/envs/<reference_env>.py``) and a traffic mix
 (``portbench/traffic/<traffic>.json``); its limits are
 ``portbench/limits/<name>.json`` and each per-layer metric is read by
-``portbench/metrics/<metric>.py``.  Nothing here names a cell.
+``portbench/metrics/<metric>.py``.  Nothing here names a cell or an
+engine.
 
 A run builds the port's NPG agent (``mjrl_tpu_torch.algos.NPG`` with a
 tanh MLP policy, the linear baseline and autoreset rollouts) with weights
@@ -28,7 +31,6 @@ failed, metrics, device (and breakdown with ``--trace 1``), and checks.
 """
 
 import argparse
-import importlib.util
 import json
 import os
 import subprocess
@@ -59,13 +61,6 @@ def fail(msg, code=2):
 def load_json(*parts):
     with open(os.path.join(HERE, *parts)) as f:
         return json.load(f)
-
-
-def load_module(path, name):
-    spec = importlib.util.spec_from_file_location(name, path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
 
 
 class Cell:
@@ -289,6 +284,7 @@ def traced(agent, cell):
 
 
 def metric_readers(cell):
+    from portbench.counts import load_module
     readers = {}
     for m in cell.per_layer:
         path = os.path.join(HERE, "metrics", m["name"] + ".py")
@@ -422,7 +418,7 @@ def run_cell(cell, args, device, ranks, mesh, children):
     from portbench.reference import check
     from portbench import trace as trace_mod
 
-    _, planar = load_config(cell.config_name)
+    _, params, engine = load_config(cell.config_name)
     readers = metric_readers(cell) if args.trace else {}
 
     # set-up: the program, its kernel's load and the checked iterations
@@ -456,8 +452,9 @@ def run_cell(cell, args, device, ranks, mesh, children):
     if device == "cuda":
         torch.cuda.empty_cache()
     t_check = time.perf_counter()
-    numbers, _, checked = check.program_numbers(run, cell.cfg, planar,
-                                                dev, args.seed, ranks)
+    numbers, _, checked = check.program_numbers(run, cell.cfg, engine,
+                                                params, dev, args.seed,
+                                                ranks)
     t_check = time.perf_counter() - t_check
     tr = trace_mod.read(events) if args.trace else None
     if tr is not None and ranks.group:      # the card's busy time, averaged

@@ -68,16 +68,17 @@ def test_half_of_the_batch_left_out(sound, toy_run, monkeypatch):
 
 def test_answer_altered_where_produced(sound, toy_run, monkeypatch):
     """The physics step's next state with the last joint's velocity off by
-    0.01."""
+    0.01, whichever engine produced it: the env's step passes every
+    stepped state through ``_rescue_divergence``."""
     from mjrl_tpu_torch.envs import base
-    original = base.cuda_step_n_batched
+    original = base._rescue_divergence
 
-    def altered(*args, **kwargs):
-        q, v = original(*args, **kwargs)
-        v = v.clone()
+    def altered(old, new):
+        out = original(old, new)
+        v = out.qvel.clone()
         v[:, -1] += 0.01
-        return q, v
-    monkeypatch.setattr(base, "cuda_step_n_batched", altered)
+        return type(out)(qpos=out.qpos, qvel=v)
+    monkeypatch.setattr(base, "_rescue_divergence", altered)
     correct, numbers = run_numbers(toy_run, sound[0])
     assert not correct and over(numbers, ("phys_gap", "phys_miss"))
 

@@ -1,6 +1,6 @@
 """The benchmark's files: BENCHMARK.json against the contract's shape, the
 files every entry is found by, and the frozen counts of each
-configuration."""
+configuration, by its engine's rules."""
 
 import json
 import os
@@ -49,8 +49,12 @@ def test_benchmark_keys_and_names():
 def test_cell_files_parse(workload):
     b = bench()
     w = next(w for w in b["workloads"] if w["name"] == workload)
+    with open(os.path.join(PB, "configs", w["config"] + ".json")) as f:
+        engine = json.load(f)["engine"]
+    assert os.path.exists(os.path.join(PB, "reference",
+                                       engine + "_plain.py"))
     for path in (("configs", w["config"] + ".json"),
-                 ("configs", w["config"] + ".planar.json"),
+                 ("configs", f"{w['config']}.{engine}.json"),
                  ("traffic", w["traffic"] + ".json"),
                  ("limits", workload + ".json")):
         with open(os.path.join(PB, *path)) as f:
@@ -64,34 +68,38 @@ def test_cell_files_parse(workload):
                                            m["name"] + ".py"))
 
 
-def test_frozen_kernel_counts():
-    """16 546 operations per environment and control step for the Swimmer
-    under K1, 691 934 for Hopper-v3 under K2, from the frozen copy."""
-    from portbench import counts
+# operations per environment and control step of each configuration's
+# kernel, counted on its engine's frozen copy: the Swimmer under K1,
+# Hopper-v3 under K2
+FROZEN_PHYSICS_OPS = {"swimmer_npg": 16546, "hopper_npg": 691934}
+
+
+@pytest.mark.parametrize("config", sorted(FROZEN_PHYSICS_OPS))
+def test_frozen_kernel_counts(config):
     from portbench.counts import load_config
-    _, swimmer = load_config("swimmer_npg")
-    _, hopper = load_config("hopper_npg")
-    assert counts.count_kernel_ops(swimmer, 5) == 16546
-    assert counts.count_contact_ops(hopper, 4) == 691934
+    cfg, p, engine = load_config(config)
+    assert engine.physics_ops(p, cfg["frame_skip"]) \
+        == FROZEN_PHYSICS_OPS[config]
 
 
 @pytest.mark.parametrize("config", sorted({w["config"]
                                            for w in bench()["workloads"]}))
 def test_config_counts_are_frozen(config):
     from portbench.counts import iteration_counts, load_config
-    cfg, p = load_config(config)
-    assert cfg["counts"] == iteration_counts(cfg, p)
+    cfg, p, engine = load_config(config)
+    assert cfg["counts"] == iteration_counts(cfg, p, engine)
 
 
 @pytest.mark.parametrize("workload", workloads())
 def test_cell_flops_and_bytes(workload):
     """The counted work of one iteration of each cell, from its shapes: the
     samples from the traffic's rows over its ranks and the horizon, the
-    kernel's bytes from the frozen model's sizes."""
+    kernel's bytes from the frozen model's sizes, as its engine gives
+    them."""
     from portbench import run
     from portbench.counts import load_config, mlp_flops, policy_passes
     cell = run.Cell(os.path.join(ROOT, "BENCHMARK.json"), workload)
-    cfg, p = load_config(cell.config_name)
+    cfg, p, engine = load_config(cell.config_name)
     c = cfg["counts"]
     samples = cell.rows // cell.traffic.get("ranks", 1) * cell.horizon
     assert samples > 0
@@ -102,5 +110,6 @@ def test_cell_flops_and_bytes(workload):
     assert c["policy_flops_per_sample"] == mlp_flops(sizes) * policy_passes(
         cfg["FIM_invert_args"]["iters"])
     # qpos, qvel and ctrl read, q and v written, float32
-    assert c["kernel_bytes_per_env"] == 4 * (4 * p.nv + cfg["act_dim"])
-    assert len(p.actuators) == cfg["act_dim"]
+    nq, nv, nu = engine.sizes(p)
+    assert c["kernel_bytes_per_env"] == 4 * (2 * nq + 2 * nv + nu)
+    assert nu == cfg["act_dim"]

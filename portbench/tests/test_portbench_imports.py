@@ -23,10 +23,11 @@ print(json.dumps(sorted({m.split(".")[0] for m in sys.modules})))"""],
 
 def test_reference_imports_neither_jax_nor_the_program():
     names = top_level("""
-from portbench.reference import check, npg, planar_plain
+from portbench.reference import check, npg
 from portbench import counts, trace
-for env in ("hopper", "swimmer"):
-    check.load_env(env)
+for name in counts.config_names():     # each with its engine's module
+    cfg, _, _ = counts.load_config(name)
+    check.load_env(cfg["reference_env"])
 """)
     assert not names & FORBIDDEN
     assert "mjrl_tpu_torch" not in names

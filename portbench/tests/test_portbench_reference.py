@@ -17,13 +17,16 @@ CONFIGS = sorted({w["config"] for w in bench()["workloads"]})
 
 @pytest.mark.parametrize("config", CONFIGS)
 def test_frozen_plain_step_matches_port(config):
+    """Each configuration's frozen engine step against the port's
+    counterpart, which the engine's module names by a dotted path."""
+    import importlib
     from mjrl_tpu_torch.envs import make
-    from mjrl_tpu_torch.physics.planar import step_n_arrays
     from portbench.counts import load_config
-    from portbench.reference import planar_plain
-    cfg, p = load_config(config)
+    cfg, p, engine = load_config(config)
+    module, name = engine.PORT_STEP.rsplit(".", 1)
+    port_fn = getattr(importlib.import_module(module), name)
     env = make(cfg["env"], device="cpu", dtype=torch.float64)
-    assert p == env._planar
+    assert p == engine.port_params(env)
     g = torch.Generator().manual_seed(1)
     s = env.reset(6, g)
     qpos = s.physics.qpos + 0.05 * torch.randn(s.physics.qpos.shape,
@@ -33,9 +36,9 @@ def test_frozen_plain_step_matches_port(config):
                        dtype=torch.float64)
     act = 2.2 * torch.rand((6, env.action_dim), generator=g,
                            dtype=torch.float64) - 1.1
-    q1, v1 = planar_plain.step_n_arrays(p, qpos, qvel, act,
-                                        cfg["frame_skip"])
-    q2, v2 = step_n_arrays(env._planar, qpos, qvel, act, cfg["frame_skip"])
+    q1, v1 = engine.step_n_arrays(p, qpos, qvel, act, cfg["frame_skip"])
+    q2, v2 = engine.port_step(port_fn, env, qpos, qvel, act,
+                              cfg["frame_skip"])
     assert torch.equal(q1, q2) and torch.equal(v1, v2)
 
 
@@ -49,9 +52,9 @@ def test_reference_follows_program_in_float64(workload):
     cell.rows, cell.horizon = TOY["rows"], TOY["horizon"]
     agent = run.build_agent(cell, 11, "cpu")
     prog = run.checked_iterations(agent, cell)
-    _, p = load_config(cell.config_name)
-    numbers, _, checked = check.program_numbers(prog, cell.cfg, p, "cpu",
-                                                11)
+    _, p, engine = load_config(cell.config_name)
+    numbers, _, checked = check.program_numbers(prog, cell.cfg, engine, p,
+                                                "cpu", 11)
     assert checked > 0 and numbers["phys_miss"] == 0
     assert numbers["phys_gap"] < 1e-10
     assert numbers["policy_gap"] < 1e-7
